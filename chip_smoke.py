@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py              # what the repository's check runs
-    python3 chip_smoke.py --profile    # also a torch.profiler breakdown of
-                                       # one request's device time by kernel
+    python3 chip_smoke.py --profile    # also torch.profiler breakdowns of
+                                       # one request's and one training
+                                       # step's device time by kernel
 
 Phases, each fatal on failure (there is no CPU path and no caught phase):
 
@@ -16,13 +17,22 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    events. Print the bound: the larger of the bytes the function must move
    over 3.35 TB/s and its tensor-core operations over 989 TFLOP/s (H100 SXM
    data sheet, dense bf16).
-3. The main path: GPT-2-124M (full width, bf16, random weights from a
+3. The serving path: GPT-2-124M (full width, bf16, random weights from a
    seeded generator) in a Checkpoint, served by a TorchPredictor that
    answers 4 requests of 8 x 1024 tokens. Every launch count is set to 0
-   just before and read just after; each kernel must have run, flash_fwd
-   exactly once per layer per request. The logits of one batch are checked
-   against the same model with the plain attention path.
-4. Print the kernels line, the card's name and power limit, and last the
+   just before and read just after; flash_fwd must have run exactly once
+   per layer per request. The logits of one batch are checked against the
+   same model with the plain attention path.
+4. The training path: make_gpt2_train_step(gpt2_124m(), device="cuda") at
+   B 24 x 1024 tokens (bench.py's first per-chip batch, remat off), one
+   warm-up step, then 8 steps on one repeated synthetic batch. Every launch
+   count is set to 0 just before and read just after; flash_fwd and
+   flash_bwd must each have run exactly once per layer per step. Loss and
+   grad norm must be finite and the loss must fall. Step time, tokens/s,
+   peak device memory and the share of 989 TFLOP/s are printed. Then the
+   loss and every parameter's gradient of one B 8 batch are checked against
+   the same model with the plain attention path.
+5. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -60,8 +70,24 @@ LSE_TOL = 1e-3
 # the two differ by more than the kernel does from its own plain version.
 LOGITS_MAX_TOL = 0.125
 LOGITS_MEAN_TOL = 1e-2
+# backward kernel vs its plain version, both bf16 on the card, for dq, dk
+# and dv, relative to each reference's max-abs: both round p and ds to
+# bf16, but the kernel's p comes from its own f32 logits (another summation
+# order, the fast exp), so an entry near a rounding edge falls one bf16
+# step (2**-8 relative) the other way; dq is summed by atomics in a
+# run-dependent order.
+GRAD_REL_TOL = 2e-2
+# training path, flash kernels vs the plain "xla" attention path of the
+# same model and batch: the loss (about 11.0) and each parameter's
+# gradient relative to its max-abs. The plain path rounds the logits to
+# bf16 before the softmax, which moves each probability by up to 2**-8
+# relative, and the two sum in other orders (measured on an H100: loss
+# 5e-5 apart, worst gradient 7.6e-3 relative).
+LOSS_TOL = 1e-3
+GRAD_PATH_REL_TOL = 2e-2
 
 N_REQUESTS, REQUEST_BATCH = 4, 8
+TRAIN_BATCH, TRAIN_STEPS, COMPARE_BATCH = 24, 8, 8
 
 
 def fail(msg: str) -> None:
@@ -95,6 +121,13 @@ def visible_pairs(Sq, Skv, q_off, kv_off, causal) -> int:
     return int((rows - kv_off + 1).clamp(0, Skv).sum())
 
 
+def bound(nbytes: int, flops: int):
+    """(bound ms, what bounds it, bytes, operations)."""
+    t_bytes, t_flops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return (max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations",
+            nbytes, flops)
+
+
 def attention_bound(q, k, q_off, kv_off, causal):
     B, H, Sq, hd = q.shape
     Skv = k.shape[2]
@@ -102,9 +135,24 @@ def attention_bound(q, k, q_off, kv_off, causal):
     nbytes = 2 * B * H * (2 * Sq + 2 * Skv) * hd + 4 * B * H * Sq
     # s = q.k^T and o = p.v: 2 products of 2 * hd operations per pair
     flops = 4 * hd * B * H * visible_pairs(Sq, Skv, q_off, kv_off, causal)
-    t_bytes, t_flops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    return (max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations",
-            nbytes, flops)
+    return bound(nbytes, flops)
+
+
+def attention_bwd_bound(q, k, q_off, kv_off, causal):
+    B, H, Sq, hd = q.shape
+    Skv = k.shape[2]
+    # q, o, do, k, v (bf16) and lse (f32) read once; dq, dk, dv written once
+    nbytes = 2 * B * H * (4 * Sq + 4 * Skv) * hd + 4 * B * H * Sq
+    # s, dp, dv, dk, dq: 5 products of 2 * hd operations per visible pair
+    flops = 10 * hd * B * H * visible_pairs(Sq, Skv, q_off, kv_off, causal)
+    return bound(nbytes, flops)
+
+
+def rel_err(out, ref) -> float:
+    """max |out - ref| over max |ref| (at least 1e-3: a gradient that is 0
+    in exact arithmetic is held in absolute terms)."""
+    scale = max(ref.float().abs().max().item(), 1e-3)
+    return (out.float() - ref.float()).abs().max().item() / scale
 
 
 def nvidia_smi() -> str:
@@ -122,53 +170,63 @@ def nvidia_smi() -> str:
 def build():
     from ray_tpu_torch.ops import _build, attention
 
+    kernels = [attention.KERNEL, attention.BWD_KERNEL]
     t0 = time.perf_counter()
-    _build.build_all([attention.KERNEL])
-    log(f"[build] {attention.KERNEL}.cu built for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for line in _build.build_logs.get(attention.KERNEL, "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[build]   {line.strip()}")
+    _build.build_all(kernels)   # one nvcc per source, all started together
+    log(f"[build] {', '.join(k + '.cu' for k in kernels)} built for sm_90a "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for name in kernels:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build]   {line.strip()}")
 
 
 # --------------------------------------------------------------------------- #
 # Phase 2: kernel vs plain version
 # --------------------------------------------------------------------------- #
 
-def attention_cases(gen):
+def sdpa(q, k, v, causal):
+    """SDPA's forward (the library yardstick; the port never calls it)."""
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+
+def forward_case(name, q, k, v, q_off=0, kv_off=0, causal=True, library=None):
+    """flash_fwd against mha_forward_plain on the same inputs, timed; fails
+    outside O_TOL / LSE_TOL. Returns (row, o, lse) of the kernel."""
     from ray_tpu_torch.ops import attention as A
 
+    o, lse = A.mha_forward_kernel(q, k, v, q_off, kv_off, causal=causal)
+    po, plse = A.mha_forward_plain(q, k, v, q_off, kv_off, causal=causal)
+    torch.cuda.synchronize()
+    o_err = (o.float() - po.float()).abs().max().item()
+    lse_err = (lse - plse).abs().max().item()
+    del po, plse
+    ms = cuda_ms(lambda: A.mha_forward_kernel(q, k, v, q_off, kv_off,
+                                              causal=causal))
+    plain_ms = cuda_ms(lambda: A.mha_forward_plain(q, k, v, q_off, kv_off,
+                                                   causal=causal), iters=5)
+    library_ms = cuda_ms(library) if library else None
+    bound_ms, bound_by, nbytes, flops = attention_bound(q, k, q_off, kv_off,
+                                                        causal)
+    row = dict(case=name, shape=list(q.shape), skv=k.shape[2], q_off=q_off,
+               kv_off=kv_off, causal=causal, o_err=o_err, lse_err=lse_err,
+               max_abs_err=max(o_err, lse_err),
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               flops=flops, bound_share=bound_ms / ms)
+    log(f"[kernel] {json.dumps(row)}")
+    if not (o_err <= O_TOL and lse_err <= LSE_TOL):
+        fail(f"flash_fwd case {name}: |o| err {o_err} (tol {O_TOL}), "
+             f"|lse| err {lse_err} (tol {LSE_TOL})")
+    return row, o, lse
+
+
+def attention_cases(gen):
     def rand(B, H, S, hd):
         return [torch.randn(B, H, S, hd, generator=gen, device="cuda",
                             dtype=torch.bfloat16) for _ in range(3)]
 
-    def check(name, q, k, v, q_off=0, kv_off=0, causal=True, library=None):
-        o, lse = A.mha_forward_kernel(q, k, v, q_off, kv_off, causal=causal)
-        po, plse = A.mha_forward_plain(q, k, v, q_off, kv_off, causal=causal)
-        torch.cuda.synchronize()
-        o_err = (o.float() - po.float()).abs().max().item()
-        lse_err = (lse - plse).abs().max().item()
-        ms = cuda_ms(lambda: A.mha_forward_kernel(q, k, v, q_off, kv_off,
-                                                  causal=causal))
-        plain_ms = cuda_ms(lambda: A.mha_forward_plain(q, k, v, q_off, kv_off,
-                                                       causal=causal), iters=5)
-        library_ms = cuda_ms(library) if library else None
-        bound_ms, bound_by, nbytes, flops = attention_bound(q, k, q_off, kv_off,
-                                                            causal)
-        row = dict(case=name, shape=list(q.shape), skv=k.shape[2], q_off=q_off,
-                   kv_off=kv_off, causal=causal, o_err=o_err, lse_err=lse_err,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                   flops=flops, bound_share=bound_ms / ms)
-        log(f"[kernel] {json.dumps(row)}")
-        if not (o_err <= O_TOL and lse_err <= LSE_TOL):
-            fail(f"flash_fwd case {name}: |o| err {o_err} (tol {O_TOL}), "
-                 f"|lse| err {lse_err} (tol {LSE_TOL})")
-        return row, o, lse
-
-    def sdpa(q, k, v, causal):
-        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-
+    check = forward_case
     rows = {}
     q, k, v = rand(8, 12, 1024, 64)
     rows["main"], full_o, _ = check("causal B8 H12 S1024 hd64", q, k, v,
@@ -208,6 +266,100 @@ def attention_cases(gen):
     return rows
 
 
+def sdpa_backward(q, k, v, do, causal):
+    """SDPA's flash backward alone, on SDPA's own saved outputs (the
+    library yardstick; the port never calls it)."""
+    aten = torch.ops.aten
+    out, lse, cq, ck, mq, mk, seed, offset, _ = (
+        aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal))
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
+
+
+def backward_cases(gen):
+    from ray_tpu_torch.ops import attention as A
+
+    def rand(B, H, S, hd):
+        return [torch.randn(B, H, S, hd, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(4)]
+
+    def check(name, q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True,
+              library=None):
+        args = (q, k, v, o, lse, do, q_off, kv_off)
+        out = A.mha_backward_kernel(*args, causal=causal)
+        ref = A.mha_backward_plain(*args, causal=causal)
+        torch.cuda.synchronize()
+        errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), out, ref)}
+        max_abs = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(out, ref))
+        ms = cuda_ms(lambda: A.mha_backward_kernel(*args, causal=causal))
+        plain_ms = cuda_ms(lambda: A.mha_backward_plain(*args, causal=causal),
+                           iters=3, warmup=1)
+        library_ms = cuda_ms(library) if library else None
+        bound_ms, bound_by, nbytes, flops = attention_bwd_bound(
+            q, k, q_off, kv_off, causal)
+        row = dict(case=name, shape=list(q.shape), skv=k.shape[2], q_off=q_off,
+                   kv_off=kv_off, causal=causal, rel_err=errs, max_abs_err=max_abs,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library="sdpa flash backward alone" if library else None,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   flops=flops, bound_share=bound_ms / ms)
+        log(f"[kernel-bwd] {json.dumps(row)}")
+        if not all(e <= GRAD_REL_TOL for e in errs.values()):
+            fail(f"flash_bwd case {name}: relative errors {errs} "
+                 f"(tol {GRAD_REL_TOL})")
+        return row, out
+
+    def forward(q, k, v, causal=True):
+        return A.mha_forward_kernel(q, k, v, causal=causal)
+
+    rows = {}
+    q, k, v, do = rand(TRAIN_BATCH, 12, 1024, 64)
+    # the training path's forward at its own shape, held and timed like the
+    # serving shape's; its o and lse feed the backward cases
+    rows["fwd_main"], o, lse = forward_case(
+        f"causal B{TRAIN_BATCH} H12 S1024 hd64 (training shape)", q, k, v,
+        library=sdpa(q, k, v, True))
+    rows["main"], full = check(
+        f"causal B{TRAIN_BATCH} H12 S1024 hd64 (training shape)",
+        q, k, v, o, lse, do, library=sdpa_backward(q, k, v, do, True))
+    on, lsen = forward(q, k, v, causal=False)
+    rows["full"], _ = check("non-causal", q, k, v, on, lsen, do, causal=False,
+                            library=sdpa_backward(q, k, v, do, False))
+    qr, kr, vr, dr = (x[:, :, :1000].contiguous() for x in (q, k, v, do))
+    orr, lser = forward(qr, kr, vr)
+    rows["ragged"], _ = check("ragged causal S1000", qr, kr, vr, orr, lser, dr,
+                              library=sdpa_backward(qr, kr, vr, dr, True))
+
+    # q rows [512, 1024) against kv chunks at 0 and 512 with the GLOBAL lse:
+    # dq summed and dk, dv stacked equal the full backward of those rows
+    d_tail = do.clone()
+    d_tail[:, :, :512] = 0
+    _, tail = check("full, do of rows < 512 zeroed", q, k, v, o, lse, d_tail)
+    qh, oh, dh = (x[:, :, 512:].contiguous() for x in (q, o, do))
+    lseh = lse[:, :, 512:].contiguous()
+    parts = []
+    for off in (0, 512):
+        kc, vc = (x[:, :, off:off + 512].contiguous() for x in (k, v))
+        row, out = check(f"q@512 vs kv@{off}, global lse", qh, kc, vc, oh, lseh,
+                         dh, 512, off)
+        rows[f"offsets{off}"] = row
+        parts.append(out)
+    sums = {"dq": rel_err(parts[0][0].float() + parts[1][0].float(),
+                          tail[0][:, :, 512:]),
+            "dk": rel_err(torch.cat([parts[0][1], parts[1][1]], 2), tail[1]),
+            "dv": rel_err(torch.cat([parts[0][2], parts[1][2]], 2), tail[2])}
+    log(f"[kernel-bwd] offset chunks summed vs full backward: {json.dumps(sums)}")
+    if not all(e <= GRAD_REL_TOL for e in sums.values()):
+        fail(f"offset chunks do not sum to the full backward: {sums}")
+
+    q8, k8, v8, d8 = rand(8, 12, 1024, 128)
+    o8, lse8 = forward(q8, k8, v8)
+    rows["hd128"], _ = check("causal B8 H12 S1024 hd128", q8, k8, v8, o8, lse8,
+                             d8, library=sdpa_backward(q8, k8, v8, d8, True))
+    return rows
+
+
 # --------------------------------------------------------------------------- #
 # Phase 3: the main path
 # --------------------------------------------------------------------------- #
@@ -241,6 +393,7 @@ def main_path(card: str, profile: bool):
 
     torch.cuda.synchronize()
     A.mha_forward_kernel.launches = 0
+    A.mha_backward_kernel.launches = 0
     answers, times = [], []
     for tokens in requests:
         t = time.perf_counter()
@@ -249,10 +402,12 @@ def main_path(card: str, profile: bool):
     launches = A.mha_forward_kernel.launches
 
     expected = cfg.n_layer * N_REQUESTS
-    log(f"[main] flash_fwd launches: {launches} (expected {expected})")
-    if launches != expected:
-        fail(f"flash_fwd launched {launches} times on the main path, "
-             f"expected {expected}")
+    log(f"[main] flash_fwd launches: {launches} (expected {expected}), "
+        f"flash_bwd {A.mha_backward_kernel.launches} (expected 0)")
+    if launches != expected or A.mha_backward_kernel.launches:
+        fail(f"serving path launched flash_fwd {launches} times (expected "
+             f"{expected}) and flash_bwd {A.mha_backward_kernel.launches} "
+             f"(expected 0)")
     for ans in answers:
         tok, logit = ans["next_token"], ans["logit"]
         if tok.shape != (REQUEST_BATCH,) or not (
@@ -287,29 +442,137 @@ def main_path(card: str, profile: bool):
         fail("main-path logits disagree with the plain attention path")
 
     if profile:
-        profile_request(predictor, requests[0])
+        profile_device_time("one request",
+                            lambda: predictor.predict({"tokens": requests[0]}))
     return launches
 
 
-def profile_request(predictor, tokens):
-    """Device time of one request by kernel name (torch.profiler)."""
+_CATEGORIES = (        # kernel name fragment -> category, first match wins
+    ("flash_fwd_kernel", "flash_fwd"), ("flash_bwd_kernel", "flash_bwd"),
+    ("nvjet", "matrix products (cuBLAS)"), ("gemm", "matrix products (cuBLAS)"),
+    ("reduce_kernel", "reductions"), ("copy", "copies and casts"),
+    ("elementwise", "other elementwise"),
+)
+
+
+def profile_device_time(what: str, fn, top: int = 12):
+    """Device time of one call of fn by kernel name and by category
+    (torch.profiler); fn ends in a synchronization."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        predictor.predict({"tokens": tokens})
+        fn()
         wall = time.perf_counter() - t
-    # kernels only: an operator's row repeats the device time of its kernels
+    # kernels only: an operator's row repeats the device time of its
+    # kernels, and a user annotation (Optimizer.step) spans kernels too
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
     total = sum(e.self_device_time_total for e in events)
-    log(f"[profile] one request: wall {wall * 1e3:.3f} ms, device busy "
+    log(f"[profile] {what}: wall {wall * 1e3:.3f} ms, device busy "
         f"{total / 1e3:.3f} ms ({100 * total / 1e6 / wall:.1f}% of wall)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+    by_category = {}
+    for e in events:
+        name = e.key.lower()
+        cat = next((c for frag, c in _CATEGORIES if frag in name), "other")
+        by_category[cat] = by_category.get(cat, 0) + e.self_device_time_total
+    for cat, us in sorted(by_category.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {us / 1e3:9.3f} ms {100 * us / max(total, 1):5.1f}% "
+            f"{cat}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / max(total, 1):5.1f}% "
             f"x{e.count:<4d} {e.key[:90]}")
+
+
+# --------------------------------------------------------------------------- #
+# Phase 4: the training path
+# --------------------------------------------------------------------------- #
+
+def train_path(card: str, profile: bool):
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.train.train_step import (
+        default_optimizer, make_gpt2_train_step, named_leaves, param_leaves,
+        synthetic_batch,
+    )
+
+    cfg = gpt2.gpt2_124m(remat=False)
+    t0 = time.perf_counter()
+    bundle = make_gpt2_train_step(
+        cfg, optimizer=default_optimizer(warmup=2, total_steps=1000),
+        generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")   # device-resident batch
+             for k, v in synthetic_batch(cfg, TRAIN_BATCH, seed=0).items()}
+    state = bundle.state
+    state, _ = bundle.step_fn(state, batch)         # warm-up step
+    torch.cuda.synchronize()
+    log(f"[train] gpt2_124m B={TRAIN_BATCH} S={cfg.seq_len} remat=False; init "
+        f"and warm-up step {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    A.mha_forward_kernel.launches = 0
+    A.mha_backward_kernel.launches = 0
+    metrics, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        state, m = bundle.step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append(m)
+    launches = {"flash_fwd": A.mha_forward_kernel.launches,
+                "flash_bwd": A.mha_backward_kernel.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    expected = cfg.n_layer * TRAIN_STEPS
+    log(f"[train] launches: {json.dumps(launches)} (expected {expected} each)")
+    if launches != {"flash_fwd": expected, "flash_bwd": expected}:
+        fail(f"training path launched {launches}, expected {expected} each")
+    losses = [m["loss"].item() for m in metrics]
+    norms = [m["grad_norm"].item() for m in metrics]
+    if not all(map(math.isfinite, losses + norms)):
+        fail(f"non-finite loss or grad norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    tokens = TRAIN_BATCH * cfg.seq_len
+    step_s = sorted(times)[len(times) // 2]
+    tokens_per_s = tokens / step_s
+    log("[train] " + json.dumps(dict(
+        card=card, batch=TRAIN_BATCH, seq_len=cfg.seq_len, steps=TRAIN_STEPS,
+        loss=losses, grad_norm=norms, step_ms=[t * 1e3 for t in times],
+        step_ms_median=step_s * 1e3, tokens_per_s=tokens_per_s,
+        peak_memory_bytes=peak, flops_per_token=gpt2.flops_per_token(cfg),
+        share_of_989_tflops=gpt2.flops_per_token(cfg) * tokens_per_s
+        / PEAK_BF16_FLOPS,
+    )))
+    if profile:
+        def one_step():
+            bundle.step_fn(state, batch)
+            torch.cuda.synchronize()
+        profile_device_time("one training step", one_step, top=16)
+
+    # one batch's loss and gradients, flash kernels vs the plain path
+    small = synthetic_batch(cfg, COMPARE_BATCH, seed=1)
+    leaves = param_leaves(state["params"])
+    results = []
+    for impl_cfg in (cfg, replace(cfg, attention_impl="xla")):
+        loss = gpt2.loss_fn(state["params"], small["tokens"], small["targets"],
+                            impl_cfg)
+        results.append((loss.item(), torch.autograd.grad(loss, leaves)))
+    (lk, gk), (lp, gp) = results
+    by_leaf = {name: rel_err(a, b) for (name, _), a, b in
+               zip(named_leaves(state["params"]), gk, gp)}
+    worst = max(by_leaf, key=by_leaf.get)
+    log(f"[train] B{COMPARE_BATCH} loss flash {lk} vs plain {lp} (tol "
+        f"{LOSS_TOL}); gradient relative errors {json.dumps(by_leaf)}, worst "
+        f"{worst} {by_leaf[worst]} (tol {GRAD_PATH_REL_TOL})")
+    if not (abs(lk - lp) <= LOSS_TOL and by_leaf[worst] <= GRAD_PATH_REL_TOL):
+        fail("training-path loss or gradients disagree with the plain "
+             "attention path")
+    return launches
 
 
 # --------------------------------------------------------------------------- #
@@ -331,25 +594,35 @@ def main() -> int:
     card = nvidia_smi()
     log(f"[env] {card}")
     build()
-    rows = attention_cases(torch.Generator(device="cuda").manual_seed(0))
-    launches = main_path(card, args.profile)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fwd = attention_cases(gen)
+    bwd = backward_cases(gen)
+    serve_launches = main_path(card, args.profile)
+    train_launches = train_path(card, args.profile)
 
-    main = rows["main"]
+    def numbers(row, launches):
+        """One path's numbers for a kernel: its launches on that path beside
+        the case run at that path's shape."""
+        return {"launches": launches, "shape": row["shape"],
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}}
+
+    # top level: the training path (the newest main path) at its own shape;
+    # by_path: each main path at its own shape with its own launches
+    fwd_paths = {"train": numbers(bwd["fwd_main"], train_launches["flash_fwd"]),
+                 "serve": numbers(fwd["main"], serve_launches)}
+    bwd_paths = {"train": numbers(bwd["main"], train_launches["flash_bwd"])}
     log(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:64",
-        "status": "ported",
-        "launches": launches,
-        "max_abs_err": max(main["o_err"], main["lse_err"]),
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-    }], "to_port": [{
-        "name": "_fused_bwd_kernel",
+        "status": "ported", **fwd_paths["train"], "by_path": fwd_paths,
+    }, {
+        "name": "flash_bwd", "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
         "replaces": "ray_tpu/ops/attention.py:220",
-        "status": "to port: training slice",
-    }]}))
+        "status": "ported", **bwd_paths["train"], "by_path": bwd_paths,
+    }], "to_port": []}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

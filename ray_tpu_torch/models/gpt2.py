@@ -13,25 +13,37 @@ Attention (`attention_impl`):
 - "ring" raises NotImplementedError: ring attention comes with the
   multi-GPU slice.
 
+Training: `loss_fn` is the mean next-token cross-entropy, through the
+fused `ops.cross_entropy.softmax_xent` or, with `loss_chunk`, chunk by
+chunk under `torch.utils.checkpoint` (the full [B, S, V] logits never
+exist at once). `remat`: True checkpoints each block (its activations are
+recomputed in the backward), "dots" saves only the matrix products'
+outputs (selective checkpointing, as jax.checkpoint_policies.
+checkpoint_dots does), False saves everything.
+
 Not ported yet: MoE blocks (moe_experts > 0) and pipeline parallelism (the
-port has no device mesh), both in later slices; the loss and training
-paths come with the training slice. `remat`, `scan_layers` and the
+port has no device mesh), both in later slices. `scan_layers` and the
 `attn_*block*` fields are kept for parity and have no effect here: the
-forward runs eagerly, layer by layer, and the kernel's tiles are fixed.
+forward runs eagerly, layer by layer, and the kernels' tiles are fixed.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch.ops.attention import flash_attention
+from ray_tpu_torch.ops.cross_entropy import softmax_xent
 
 
 def _round_up(x: int, m: int) -> int:
@@ -290,6 +302,27 @@ def _block(x, p: Dict[str, torch.Tensor], cfg: GPT2Config):
     return x + h @ p["out_w"].to(dt) + p["out_b"].to(dt)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_block(x, p, cfg: GPT2Config):
+    """One block under the remat policy of cfg.remat."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return _block(x, p, cfg)
+    if cfg.remat == "dots":
+        return checkpoint(
+            _block, x, p, cfg, use_reentrant=False,
+            context_fn=partial(create_selective_checkpoint_contexts, _save_dots),
+        )
+    return checkpoint(_block, x, p, cfg, use_reentrant=False)
+
+
 def _trunk(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config):
     """tokens [B, S] int → final hidden states [B, S, D] (compute dtype)."""
     _require_dense(cfg)
@@ -298,9 +331,12 @@ def _trunk(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config):
     S = tokens.shape[1]
     dt = cfg.dtype
     x = wte.to(dt)[tokens] + params["wpe"][:S].to(dt)
+    # unbind: one view per layer, and one stack of the layers' gradients in
+    # the backward (indexing w[i] would add a zero-filled [L, ...] per layer)
     blocks = params["blocks"]
-    for i in range(cfg.n_layer):
-        x = _block(x, {k: w[i] for k, w in blocks.items()}, cfg)
+    layers = zip(*(w.unbind(0) for w in blocks.values()))
+    for layer in layers:
+        x = _run_block(x, dict(zip(blocks.keys(), layer)), cfg)
     return _layernorm(x, params["lnf_scale"], params["lnf_bias"])
 
 
@@ -309,3 +345,51 @@ def forward(params: Dict[str, Any], tokens, cfg: GPT2Config) -> torch.Tensor:
     x = _trunk(params, tokens, cfg)
     # tied LM head
     return x @ params["wte"].to(cfg.dtype).T
+
+
+def _chunk_nll(x_c, targets_c, wte):
+    """[B, c, D] hidden + [B, c] targets → (sum nll, count) for the chunk."""
+    logits = (x_c @ wte.T).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    mask = targets_c >= 0
+    safe = torch.where(mask, targets_c, torch.zeros_like(targets_c))
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return (nll * mask).sum(), mask.sum()
+
+
+def loss_fn(
+    params: Dict[str, Any], tokens, targets, cfg: GPT2Config,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy, f32 scalar. targets [B, S] int
+    (-1 = ignore).
+
+    With loss_chunk = 0 (or one that does not divide S, or equals it) the
+    LM head's logits go through the fused `softmax_xent`, whose backward
+    keeps only the bf16 logits and a [B, S] lse. Otherwise the sequence is
+    cut into chunks, each chunk's logits built, reduced to a scalar and
+    rebuilt in the backward (torch.utils.checkpoint): the full [B, S, V]
+    logits never exist at once. Same math, f32 softmax, in both."""
+    x = _trunk(params, tokens, cfg)
+    S = x.shape[1]
+    targets = torch.as_tensor(targets, device=x.device).long()
+    wte = params["wte"].to(cfg.dtype)
+    chunk = cfg.loss_chunk or 0
+    if chunk <= 0 or S % chunk or S == chunk:
+        nll = softmax_xent(x @ wte.T, targets)
+        count = (targets >= 0).sum()
+        return nll.sum() / count.clamp(min=1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.long, device=x.device)
+    for i in range(0, S, chunk):
+        s, c = checkpoint(_chunk_nll, x[:, i:i + chunk],
+                          targets[:, i:i + chunk], wte, use_reentrant=False)
+        total, count = total + s, count + c
+    return total / count.clamp(min=1)
+
+
+def flops_per_token(cfg: GPT2Config) -> float:
+    """Approximate training FLOPs per token (fwd+bwd ≈ 6N + attention term),
+    the JAX package's formula."""
+    n = param_count(cfg)
+    attn = 12 * cfg.n_layer * cfg.d_model * cfg.seq_len  # 2*2*3 per token
+    return 6.0 * n + attn

@@ -106,8 +106,9 @@ def test_rows_without_visible_key_are_zero():
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_gradients_match_jax(causal):
-    """On the CPU the backward differentiates the plain version; it must
-    match the JAX custom VJP (the Pallas backward, interpret mode)."""
+    """On the CPU the backward is the plain backward (mha_backward_plain);
+    it must match the JAX custom VJP (the Pallas backward, interpret
+    mode)."""
     arrays = make_qkv(2, B=1, S=128, H=2, hd=32)
     (jq, jk, jv), _ = both(arrays)
 

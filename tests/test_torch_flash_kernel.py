@@ -1,5 +1,5 @@
-"""The Hopper flash-attention kernel (ray_tpu_torch/ops/csrc/flash_fwd.cu)
-against its plain PyTorch version.
+"""The Hopper flash-attention kernels (ray_tpu_torch/ops/csrc/flash_fwd.cu
+and flash_bwd.cu) against their plain PyTorch versions.
 
 This file imports no JAX, so its on-card tests also run on a GPU machine
 that has none:
@@ -10,7 +10,13 @@ Those tests are marked `cuda` and skip without a GPU. Tolerances (both
 sides bf16 on the card): o at atol 2e-2 — o is rounded to bf16 (a step is
 2**-7 near 1) and p is rounded against the running max in the kernel but
 the row max in the plain version; lse at atol 1e-3 (f32, summation order
-and the fast exp only).
+and the fast exp only). Backward: dq, dk and dv at 2e-2 of each
+reference's max-abs — both round p and ds to bf16, but the kernel's p
+comes from its own f32 logits (another summation order, the fast exp), so
+a p or ds near a rounding edge falls one bf16 step (2**-8 relative) the
+other way, and dq's atomics add in a run-dependent order. A gradient that
+is 0 in exact arithmetic (S = 1: ds = p·(dp − delta) with dp = delta) is
+held in absolute terms, against a max-abs of at least 1e-3.
 """
 
 import pytest
@@ -22,6 +28,7 @@ from ray_tpu_torch.ops import attention as tattn
 
 O_TOL = dict(atol=2e-2, rtol=0)
 LSE_TOL = dict(atol=1e-3, rtol=0)
+GRAD_REL = 2e-2
 
 
 @pytest.fixture
@@ -33,10 +40,15 @@ def cuda_device():
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     q = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16)
-    before = tattn.mha_forward_kernel.launches
+    lse = torch.zeros(1, 1, 8)
+    before = (tattn.mha_forward_kernel.launches,
+              tattn.mha_backward_kernel.launches)
     with pytest.raises(ValueError, match="not CUDA"):
         tattn.mha_forward_kernel(q, q, q)
-    assert tattn.mha_forward_kernel.launches == before
+    with pytest.raises(ValueError, match="not CUDA"):
+        tattn.mha_backward_kernel(q, q, q, q, lse, q)
+    assert (tattn.mha_forward_kernel.launches,
+            tattn.mha_backward_kernel.launches) == before
 
 
 def test_build_refuses_without_a_card(monkeypatch):
@@ -46,10 +58,11 @@ def test_build_refuses_without_a_card(monkeypatch):
         _build.load(tattn.KERNEL)
 
 
-def test_library_name_follows_source_and_flags():
-    path = _build._library_path(tattn.KERNEL)
+@pytest.mark.parametrize("kernel", [tattn.KERNEL, tattn.BWD_KERNEL])
+def test_library_name_follows_source_and_flags(kernel):
+    path = _build._library_path(kernel)
     assert path.parent == _build.BUILD_DIR
-    assert path.name.startswith("libflash_fwd-") and path.suffix == ".so"
+    assert path.name.startswith(f"lib{kernel}-") and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -74,14 +87,76 @@ def test_kernel_matches_plain_on_card(cuda_device, causal, S, hd, offsets):
     torch.testing.assert_close(lse, rl, **LSE_TOL)
 
 
+def rel_err(out, ref):
+    scale = max(ref.float().abs().max().item(), 1e-3)
+    return (out.float() - ref.float()).abs().max().item() / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,S,hd,offsets", [
+    (True, 256, 64, (0, 0)),
+    (False, 256, 64, (0, 0)),
+    (True, 1000, 64, (0, 0)),      # ragged tail
+    (True, 256, 128, (0, 0)),
+    (False, 200, 128, (0, 0)),     # ragged, 32-row q tiles
+    (True, 128, 64, (128, 0)),     # q chunk after the kv chunk
+    (True, 64, 64, (0, 10_000)),   # kv chunk wholly in the future: all 0
+    (True, 1, 64, (0, 0)),
+])
+def test_backward_kernel_matches_plain_on_card(cuda_device, causal, S, hd,
+                                               offsets):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v, do = (torch.randn(2, 3, S, hd, generator=g, device=cuda_device,
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = tattn.mha_forward_kernel(q, k, v, *offsets, causal=causal)
+    before = tattn.mha_backward_kernel.launches
+    out = tattn.mha_backward_kernel(q, k, v, o, lse, do, *offsets, causal=causal)
+    assert tattn.mha_backward_kernel.launches == before + 1
+    ref = tattn.mha_backward_plain(q, k, v, o, lse, do, *offsets, causal=causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), out, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert rel_err(a, b) <= GRAD_REL, (name, rel_err(a, b))
+
+
+@pytest.mark.cuda
+def test_backward_offset_chunks_sum_to_the_full_backward(cuda_device):
+    """q rows [128, 256) against kv chunks at 0 and 128 with the GLOBAL lse:
+    dq summed and dk, dv stacked equal the full backward of those rows."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v, do = (torch.randn(2, 3, 256, 64, generator=g, device=cuda_device,
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = tattn.mha_forward_kernel(q, k, v)
+    do[:, :, :128] = 0
+    full = tattn.mha_backward_kernel(q, k, v, o, lse, do)
+    qh, oh, doh = (x[:, :, 128:].contiguous() for x in (q, o, do))
+    lseh = lse[:, :, 128:].contiguous()
+    parts = [tattn.mha_backward_kernel(
+        qh, k[:, :, off:off + 128].contiguous(), v[:, :, off:off + 128].contiguous(),
+        oh, lseh, doh, 128, off) for off in (0, 128)]
+    torch.cuda.synchronize()
+    dq = parts[0][0].float() + parts[1][0].float()
+    assert rel_err(dq, full[0][:, :, 128:]) <= GRAD_REL
+    for i in (1, 2):
+        cat = torch.cat([parts[0][i], parts[1][i]], dim=2)
+        assert rel_err(cat, full[i]) <= GRAD_REL
+
+
 @pytest.mark.cuda
 def test_kernel_raises_on_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 1, 16, 64, device=cuda_device)
+    lse = torch.zeros(1, 1, 16, device=cuda_device)
+    before = tattn.mha_backward_kernel.launches
     with pytest.raises(TypeError, match="bf16"):
         tattn.mha_forward_kernel(q, q, q)
+    with pytest.raises(TypeError, match="bf16"):
+        tattn.mha_backward_kernel(q, q, q, q, lse, q)
     q = torch.zeros(1, 1, 16, 96, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         tattn.mha_forward_kernel(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.mha_backward_kernel(q, q, q, q, lse, q)
+    assert tattn.mha_backward_kernel.launches == before
 
 
 @pytest.mark.cuda
@@ -98,3 +173,21 @@ def test_gpt2_forward_on_card_goes_through_the_kernel(cuda_device):
                            gpt2.gpt2_tiny(n_head=2, attention_impl="xla"))
     assert tattn.mha_forward_kernel.launches == before + cfg.n_layer
     torch.testing.assert_close(out.float(), ref.float(), atol=5e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_gpt2_train_step_on_card_goes_through_both_kernels(cuda_device):
+    from ray_tpu_torch.train import train_step as ttrain
+
+    cfg = gpt2.gpt2_tiny(n_head=2)   # hd = 64
+    bundle = ttrain.make_gpt2_train_step(
+        cfg, optimizer=ttrain.default_optimizer(lr=1e-3, warmup=1),
+        device=cuda_device)
+    batch = ttrain.synthetic_batch(cfg, 2, seed=0)
+    before = (tattn.mha_forward_kernel.launches,
+              tattn.mha_backward_kernel.launches)
+    losses = [float(bundle.step_fn(bundle.state, batch)[1]["loss"])
+              for _ in range(3)]
+    assert (tattn.mha_forward_kernel.launches - before[0],
+            tattn.mha_backward_kernel.launches - before[1]) == (6, 6)
+    assert losses[-1] < losses[0]
