@@ -5,18 +5,23 @@
     python3 chip_smoke.py --profile    # also torch.profiler breakdowns of
                                        # one request's and one training
                                        # step's device time by kernel
+    python3 chip_smoke.py --compare-fwd OLD/flash_fwd.cu
+                                       # also time another design of the
+                                       # forward kernel against this one
 
 Phases, each fatal on failure (there is no CPU path and no caught phase):
 
 1. Build every hand-written kernel from ops/csrc/ with nvcc (one process per
-   source, all started together) and print ptxas' register report.
+   source, all started together) and print ptxas' report per kernel:
+   registers, static and dynamic shared memory, spills. Any spill fails.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at the edge cases, within the stated tolerances,
    and time the kernel, the plain version and one PyTorch library call that
    computes the same function (a yardstick the port never calls) with CUDA
-   events. Print the bound: the larger of the bytes the function must move
-   over 3.35 TB/s and its tensor-core operations over 989 TFLOP/s (H100 SXM
-   data sheet, dense bf16).
+   events, and the forward wrapper's host time per call. Print the bound:
+   the larger of the bytes the function must move over 3.35 TB/s and its
+   tensor-core operations over 989 TFLOP/s (H100 SXM data sheet, dense
+   bf16).
 3. The serving path: GPT-2-124M (full width, bf16, random weights from a
    seeded generator) in a Checkpoint, served by a TorchPredictor that
    answers 4 requests of 8 x 1024 tokens. Every launch count is set to 0
@@ -42,8 +47,10 @@ checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -113,6 +120,20 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_call_ms(fn, iters: int = 20) -> float:
+    """Host time of one fn() call in ms, from the host clock around `iters`
+    calls that are only enqueued (no synchronization): where it exceeds the
+    device time, the card waits for the host."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t) / iters
+    torch.cuda.synchronize()
+    return host * 1e3
+
+
 def visible_pairs(Sq, Skv, q_off, kv_off, causal) -> int:
     """(query, key) pairs this call's mask lets through: the work it needs."""
     if not causal:
@@ -167,6 +188,32 @@ def nvidia_smi() -> str:
 # Phase 1: build
 # --------------------------------------------------------------------------- #
 
+def ptxas_report(log: str):
+    """Per compiled entry function of a `-Xptxas -v` log: its template
+    arguments, registers, static shared memory and spilled bytes."""
+    entries, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            cur = dict(entry=m.group(1), template=args, registers=None,
+                       smem_static=0, spill_stores=0, spill_loads=0)
+            entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem_static"] = int(m.group(1))
+    return entries
+
+
 def build():
     from ray_tpu_torch.ops import _build, attention
 
@@ -175,10 +222,27 @@ def build():
     _build.build_all(kernels)   # one nvcc per source, all started together
     log(f"[build] {', '.join(k + '.cu' for k in kernels)} built for sm_90a "
         f"in {time.perf_counter() - t0:.1f} s")
+    smem_bytes = _build.load(attention.KERNEL).flash_fwd_smem_bytes
+    spills = []
     for name in kernels:
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"[build]   {line.strip()}")
+        build_log = _build.build_log(name)
+        if not ptxas_report(build_log):
+            fail(f"no ptxas report for {name}.cu")
+        for line in build_log.splitlines():
+            if "wgmma" in line or "warning" in line.lower():
+                log(f"[build]   {name}: {line.strip()}")
+        for e in ptxas_report(build_log):
+            row = dict(kernel=name, template=e["template"],
+                       registers=e["registers"], smem_static=e["smem_static"],
+                       spill_stores=e["spill_stores"],
+                       spill_loads=e["spill_loads"])
+            if name == attention.KERNEL and e["template"]:
+                row["smem_dynamic"] = smem_bytes(int(e["template"][0]))
+            log(f"[build] {json.dumps(row)}")
+            if e["spill_stores"] or e["spill_loads"]:
+                spills.append(row)
+    if spills:
+        fail(f"ptxas spilled registers: {spills}")
 
 
 # --------------------------------------------------------------------------- #
@@ -203,6 +267,8 @@ def forward_case(name, q, k, v, q_off=0, kv_off=0, causal=True, library=None):
     del po, plse
     ms = cuda_ms(lambda: A.mha_forward_kernel(q, k, v, q_off, kv_off,
                                               causal=causal))
+    host_ms = host_call_ms(lambda: A.mha_forward_kernel(q, k, v, q_off, kv_off,
+                                                        causal=causal))
     plain_ms = cuda_ms(lambda: A.mha_forward_plain(q, k, v, q_off, kv_off,
                                                    causal=causal), iters=5)
     library_ms = cuda_ms(library) if library else None
@@ -211,9 +277,9 @@ def forward_case(name, q, k, v, q_off=0, kv_off=0, causal=True, library=None):
     row = dict(case=name, shape=list(q.shape), skv=k.shape[2], q_off=q_off,
                kv_off=kv_off, causal=causal, o_err=o_err, lse_err=lse_err,
                max_abs_err=max(o_err, lse_err),
-               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-               flops=flops, bound_share=bound_ms / ms)
+               ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, flops=flops, bound_share=bound_ms / ms)
     log(f"[kernel] {json.dumps(row)}")
     if not (o_err <= O_TOL and lse_err <= LSE_TOL):
         fail(f"flash_fwd case {name}: |o| err {o_err} (tol {O_TOL}), "
@@ -264,6 +330,53 @@ def attention_cases(gen):
     rows["hd128"], _, _ = check("causal B8 H12 S1024 hd128", q8, k8, v8,
                                 library=sdpa(q8, k8, v8, True))
     return rows
+
+
+def compare_forward(src: str, gen):
+    """Time the flash_fwd built from another source `src` (with the same C
+    entry point, e.g. an earlier design unpacked from git history) against
+    the one in ops/csrc/, in turns old, new, new, old, at the main paths'
+    shapes; both are first held against the plain version."""
+    from ray_tpu_torch.ops import _build, attention as A
+
+    out = _build.BUILD_DIR / "libflash_fwd_compare.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
+                   check=True, capture_output=True, text=True, timeout=600)
+    fn = ctypes.CDLL(str(out)).flash_fwd_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+    def old(q, k, v):
+        o, lse = torch.empty_like(q), torch.empty(q.shape[:3], device="cuda")
+        B, H, S, hd = q.shape
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), B, H, S, S, hd, 0, 0, hd ** -0.5, 1,
+                 torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "flash_fwd_bf16 (compared source)")
+        return o, lse
+
+    def new(q, k, v):
+        return A.mha_forward_kernel(q, k, v)
+
+    for B, hd in ((TRAIN_BATCH, 64), (REQUEST_BATCH, 64), (REQUEST_BATCH, 128)):
+        q, k, v = (torch.randn(B, 12, 1024, hd, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        po, plse = A.mha_forward_plain(q, k, v)
+        errs = {}
+        for name, f in (("old", old), ("new", new)):
+            o, lse = f(q, k, v)
+            torch.cuda.synchronize()
+            errs[name] = max((o.float() - po.float()).abs().max().item(),
+                             (lse - plse).abs().max().item())
+        ms = [cuda_ms(lambda f=f: f(q, k, v)) for f in (old, new, new, old)]
+        row = dict(shape=[B, 12, 1024, hd], src=src, max_abs_err=errs,
+                   old_ms=[ms[0], ms[3]], new_ms=[ms[1], ms[2]],
+                   speedup=(ms[0] + ms[3]) / (ms[1] + ms[2]))
+        log(f"[compare] {json.dumps(row)}")
+        if not all(e <= O_TOL for e in errs.values()):
+            fail(f"compared forward kernels disagree with the plain version: "
+                 f"{errs}")
 
 
 def sdpa_backward(q, k, v, do, causal):
@@ -580,6 +693,9 @@ def train_path(card: str, profile: bool):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--compare-fwd", metavar="SRC",
+                        help="also time flash_fwd built from SRC (same C "
+                             "entry point) against the current one")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -596,6 +712,8 @@ def main() -> int:
     build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     fwd = attention_cases(gen)
+    if args.compare_fwd:
+        compare_forward(args.compare_fwd, gen)
     bwd = backward_cases(gen)
     serve_launches = main_path(card, args.profile)
     train_launches = train_path(card, args.profile)
@@ -605,7 +723,8 @@ def main() -> int:
         the case run at that path's shape."""
         return {"launches": launches, "shape": row["shape"],
                 **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")}}
+                                       "bound_ms", "bound_by", "bound_share",
+                                       "library_ms")}}
 
     # top level: the training path (the newest main path) at its own shape;
     # by_path: each main path at its own shape with its own launches

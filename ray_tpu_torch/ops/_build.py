@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-build_logs: Dict[str, str] = {}   # nvcc's output per kernel (ptxas register use)
+build_logs: Dict[str, str] = {}   # nvcc's output per kernel built by this process
 
 
 def _nvcc() -> str:
@@ -75,7 +75,17 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas' register report) for the current library of
+    kernel `name`, whichever process built it; empty if none was kept."""
+    if name in build_logs:
+        return build_logs[name]
+    log = _library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build_all(names: Iterable[str]) -> None:

@@ -1,34 +1,63 @@
-// Flash-attention forward for NVIDIA Hopper (sm_90a), bf16 in, f32 softmax.
+// Flash-attention forward for NVIDIA Hopper (sm_90a): TMA, mbarriers, wgmma
+// and a producer warp. bf16 in, f32 softmax.
 //
 // Replaces ray_tpu/ops/attention.py::_fwd_kernel (the Pallas TPU kernel that
 // _mha_forward_bhsd launches). Same function: q, k, v in [B, H, S, hd]; the
 // softmax scale folded into q once, rounded to bf16 as the TPU kernel does;
 // logits and the online-softmax state (m, l, acc) in f32; p cast to bf16
-// before p.v; a causal mask built from the GLOBAL positions q_off / kv_off;
-// kv tiles wholly in the future skipped, the mask applied only on diagonal
-// tiles and on the ragged tail when Skv is not a multiple of the tile. A row
-// with no visible key gets o = 0 and lse = -1e30.
+// before p.v; a causal mask built from the GLOBAL positions q_off / kv_off
+// (64-bit); kv tiles wholly in the future skipped, the mask applied only on
+// diagonal tiles and on the ragged tail when Skv is not a multiple of the
+// tile. A row with no visible key gets o = 0 and lse = -1e30.
 //
-// Design. One thread block per (b, h, 64-row q tile); 4 warps each own 16
-// query rows. The q tile is scaled and kept in registers as mma A fragments.
-// Each 64-row K/V tile is staged in shared memory and shared by the 4 warps;
-// two buffers per tensor let cp.async bring tile j+1 in while tile j is
-// computed. Both products are mma.sync.m16n8k16 bf16 with f32 accumulation;
-// the S accumulator of two adjacent 8-column tiles is re-packed in registers
-// as the A fragment of p.v, so p never touches shared memory. V stays
-// row-major in shared memory and ldmatrix.trans reads it as p.v's B
-// fragments. Rows are padded by 8 bf16 so the fragment loads of one warp
-// hit 32 distinct banks.
+// What bounds it. At the training shape B=24, H=12, S=1024, hd=64 causal it
+// must read q, k, v and write o and lse, 152 MB, and do 38.7 GFLOP of
+// visible work: 45 us at 3.35 TB/s and 39 us at 989 TFLOP/s on an H100 SXM.
+// The shape sits at the ridge, so the copies must run under the products
+// and the products must run on wgmma, the only path to the tensor cores'
+// full rate; a block must never wait for its own loads.
 //
-// What bounds it. At B=8, H=12, S=1024, hd=64 causal it reads q, k, v and
-// writes o and lse, about 51 MB, against about 13 GFLOP of visible work: on
-// an H100 SXM that is 15 us at 3.35 TB/s and 13 us at 989 TFLOP/s, so the
-// shape sits near the memory/compute ridge and either limit is reachable
-// only with the copies overlapped with the products and the products on
-// wgmma. This version overlaps one tile of copy with compute and stays on
-// mma.sync (no TMA, no wgmma, no warp specialisation): its measured time
-// against the bound is in PERF.md.
+// Design.
+// - Persistent grid: one block per SM walks over (128-row q tile, b*h)
+//   work items, the latest q tiles of every head first (under a causal mask
+//   they carry the most kv tiles), dealt in a snake order so the light tiles
+//   fill the tail.
+// - Warp specialisation: 3 warpgroups. Warpgroup 0 is the producer: it gives
+//   up registers (setmaxnreg.dec) and one thread issues every TMA load. The
+//   two consumer warpgroups take the registers (setmaxnreg.inc) and own 64
+//   query rows each of the 128-row q tile.
+// - TMA: q, k, v and o are 3-D tensor maps [B*H, S, hd], so a box that runs
+//   past S reads zeros (and a store drops those rows) and never touches the
+//   next head's rows. Boxes are 64 columns (one 128-byte row of bf16) with
+//   the 128-byte swizzle that wgmma reads; hd 128 takes two boxes side by
+//   side. The maps are encoded on the host at every call and not cached:
+//   encoding is a host-only computation of about a microsecond, and the
+//   pointers change from call to call.
+// - A ring of STAGES K/V stages in shared memory, each with a "full" barrier
+//   (the producer's arrive.expect_tx, completed by the TMA's bytes) and an
+//   "empty" barrier (one arrival per consumer warp after the wgmma.wait_group
+//   that last reads the stage). q has its own full/empty pair, so the next
+//   work item's q and first K/V tiles load while the consumers finish the
+//   current one.
+// - Consumers: q is read once from the swizzled tile, scaled, rounded to bf16
+//   and kept in registers as the wgmma A operand. S = (q*scale).k^T is
+//   wgmma m64nNk16 with k as a K-major B operand in swizzled shared memory;
+//   the online softmax runs on the accumulator layout in registers; p is
+//   re-packed as bf16 into the register A operand of o += p.v, and v is read
+//   as an MN-major B operand: the transpose is a bit in the instruction, not
+//   a copy. A warpgroup waits for each of its products; the other warpgroup
+//   runs its softmax meanwhile. (Issuing s_{j+1} before the softmax of tile
+//   j, with explicit turns between the warpgroups, measured no faster on an
+//   H100: PERF.md.)
+// - Epilogue: o / l goes through a swizzled staging tile per warpgroup and
+//   one TMA store per 64-column box; lse is written directly.
+// - Tile sizes. hd 64: 128-row kv tiles (S accumulator 64 f32, o 32, p 32,
+//   q 16 registers a thread), 6 stages, 225 KB of shared memory. hd 128:
+//   64-row kv tiles (S 32, o 64, p 16, q 32), 5 stages, 225 KB: 128-row
+//   tiles would take 64 KB a stage, leaving room for 2 stages only.
+// Kernel times against the bound are in PERF.md.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,21 +65,220 @@
 
 namespace {
 
-constexpr int BLOCK_M = 64;                  // query rows per thread block
-constexpr int BLOCK_N = 64;                  // kv rows per tile
-constexpr int NUM_WARPS = BLOCK_M / 16;      // each warp owns 16 query rows
-constexpr int NUM_THREADS = NUM_WARPS * 32;
-constexpr int PAD = 8;                       // bf16 of padding per smem row
-constexpr float NEG_BIG = -1e30f;            // lse of a row with no visible key
+constexpr int BLOCK_M = 128;              // q rows per work item
+constexpr int WG_ROWS = 64;               // q rows per consumer warpgroup
+constexpr int NUM_CONSUMERS = 2;          // consumer warpgroups
+constexpr int NUM_THREADS = 128 * (1 + NUM_CONSUMERS);
+constexpr int CONSUMER_WARPS = 4 * NUM_CONSUMERS;
+constexpr int BOX_COLS = 64;              // bf16 columns of one TMA box: 128 bytes
+constexpr int PRODUCER_REGS = 40;         // 128 * 40 + 256 * 232 <= 65536
+constexpr int CONSUMER_REGS = 232;
+constexpr float NEG_BIG = -1e30f;         // lse of a row with no visible key
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
+template <int HD>
+struct Cfg {
+  static constexpr int BLOCK_N = HD == 64 ? 128 : 64;  // kv rows per tile (see header)
+  static constexpr int STAGES = HD == 64 ? 6 : 5;       // K/V stages: all the smem there is
+  static constexpr int BOXES = HD / BOX_COLS;
+  static constexpr int Q_BOX_BYTES = BLOCK_M * BOX_COLS * 2;
+  static constexpr int KV_BOX_BYTES = BLOCK_N * BOX_COLS * 2;
+  static constexpr int Q_BYTES = BOXES * Q_BOX_BYTES;
+  static constexpr int KV_TILE_BYTES = BOXES * KV_BOX_BYTES;   // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_TILE_BYTES;        // K then V
+  static constexpr int O_WG_BYTES = BOXES * WG_ROWS * BOX_COLS * 2;  // one warpgroup's o
+  static constexpr int O_OFFSET = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFFSET = O_OFFSET + NUM_CONSUMERS * O_WG_BYTES;
+  // q, the stages, o's staging, the barriers, and 1 KB to align the base
+  static constexpr int SMEM = BAR_OFFSET + 8 * (2 + 2 * STAGES) + 1024;
+};
+
+struct Problem {
+  int BH, Sq, Skv, q_off, kv_off, causal;
+  int n_qt;  // 128-row q tiles per (b, h)
+};
+
+// ---- shared-memory barriers, TMA and wgmma, as PTX ------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed. (No timeout: a
+// __trap() on this path keeps ptxas from giving the consumers the registers
+// of setmaxnreg.inc, and the kernel then spills.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one TMA box of a 3-D map at (column, row, b*h) into shared memory at dst;
+// completion is counted in bytes on barrier `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// one TMA box from shared memory at src to a 3-D map at (column, row, b*h);
+// rows past the tensor's end are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until this thread's committed TMA stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// barrier over the 128 threads of consumer warpgroup cw (named barrier 3 + cw)
+__device__ __forceinline__ void wg_sync(int cw) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + cw) : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`:
+// 8-row groups 1024 bytes apart (stride byte offset), `lbo` bytes between
+// 64-column boxes of an MN-major operand (leading byte offset)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until this warpgroup's committed products are done
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of wgmma registers across the
+// asynchronous product
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= a . B: A (64 x 16 bf16) from registers, B from shared memory by
+// descriptor (TRANS_B = 1: MN-major), f32 accumulate; scale_d = 0 overwrites d
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma width");
+  if constexpr (N == 64) {
+    wgmma_m64n64k16_rs<TRANS_B>(d, a, desc_b, scale_d);
+  } else {
+    wgmma_m64n128k16_rs<TRANS_B>(d, a, desc_b, scale_d);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -58,267 +286,428 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+// byte offset of 16-byte chunk `chunk` of row `row` in a 128-byte-swizzled box
+__device__ __forceinline__ int swizzled(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
+// Work item -> (q tile, b*h): the latest q tiles of every head first (under
+// a causal mask they carry the most kv tiles), so the light ones fill the tail
+__device__ __forceinline__ void work_item(int w, const Problem& p, int& qt, int& bh) {
+  qt = p.n_qt - 1 - w / p.BH;
+  bh = w % p.BH;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// The i-th work item of this block, or -1 past the last. Round i deals items
+// [i * G, (i + 1) * G) over the G blocks, in reverse order on odd rounds, so
+// that a block given a heavy item in one round gets a light one in the next.
+__device__ __forceinline__ int nth_item(int i, int n_work) {
+  const int G = gridDim.x, b = blockIdx.x;
+  const int w = i * G + ((i & 1) ? G - 1 - b : b);
+  return w < n_work ? w : -1;
 }
 
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// kv tiles a q tile starting at q_start visits: under a causal mask, those
+// not wholly in the future of its last row (64-bit positions)
+template <int BLOCK_N>
+__device__ __forceinline__ int kv_tiles(int q_start, const Problem& p) {
+  const int nk = (p.Skv + BLOCK_N - 1) / BLOCK_N;
+  if (!p.causal) return nk;
+  const long long last_q = (long long)p.q_off + min(q_start + BLOCK_M, p.Sq) - 1;
+  const long long span = last_q - p.kv_off;  // last visible kv index
+  const long long tiles = span < 0 ? 0 : span / BLOCK_N + 1;
+  return tiles < nk ? (int)tiles : nk;
 }
 
-// four 8x8 bf16 matrices, transposed: the B fragments of two n8 mma tiles
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
+// s = (q * scale) . k^T for the kv tile at shared address ks, committed as
+// one group: k is a K-major B operand; a 16-column step moves 32 bytes along
+// the swizzled row, and at hd 128 columns 64.. are in the second box
+template <int HD, int BLOCK_N>
+__device__ __forceinline__ void s_product(float (&sc)[BLOCK_N / 2],
+                                          const uint32_t (&qa)[HD / 16][4], uint32_t ks) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_rs<BLOCK_N, 0>(
+        sc, qa[kk], sw128_desc(ks + (kk / 4) * Cfg<HD>::KV_BOX_BYTES + (kk % 4) * 32, 0),
+        kk > 0);
+  wgmma_commit();
+}
+
+// The online-softmax step of one kv tile, on the s accumulator in registers:
+// when `mask`, entries past Skv or in the future of their row (by global
+// position) become -inf; then s becomes p = exp(s - max) in place, alpha
+// gets the factor that rescales o and l, and l = l * alpha + rowsum(p). A
+// row's columns are spread over the 4 threads of a quad. A row with no
+// visible key so far keeps max -inf and p = 0.
+template <int BLOCK_N>
+__device__ __forceinline__ void softmax_step(float (&sc)[BLOCK_N / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2], bool mask,
+                                             int col0, long long row_g, const Problem& p,
+                                             int t) {
+  if (mask) {
+    // the last visible column of each row, relative to this thread's first
+    // column col0 + 2t, in 32 bits: the tile's columns are compile-time
+    // offsets from it
+    const long long last = p.causal ? row_g - p.kv_off - col0 : (long long)BLOCK_N;
+    const long long tail = (long long)p.Skv - 1 - col0;
+    int lim[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      long long v = last + (p.causal ? 8 * r : 0);
+      v = v < tail ? v : tail;
+      v = v < -1 ? -1 : v > BLOCK_N ? BLOCK_N : v;
+      lim[r] = (int)v - 2 * t;
+    }
+#pragma unroll
+    for (int i = 0; i < BLOCK_N / 2; ++i)
+      if ((i / 4) * 8 + (i & 1) > lim[(i >> 1) & 1]) sc[i] = -INFINITY;
+  }
+  // row maxima in 4 interleaved chains per row (short dependency chains at
+  // few registers)
+  constexpr int NT = BLOCK_N / 8;  // column tiles
+  static_assert(NT % 4 == 0, "4 chains per row");
+  float t0[4], t1[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    t0[c] = fmaxf(sc[c * 4], sc[c * 4 + 1]);
+    t1[c] = fmaxf(sc[c * 4 + 2], sc[c * 4 + 3]);
+  }
+#pragma unroll
+  for (int nt = 4; nt < NT; ++nt) {
+    t0[nt % 4] = fmaxf(t0[nt % 4], fmaxf(sc[nt * 4], sc[nt * 4 + 1]));
+    t1[nt % 4] = fmaxf(t1[nt % 4], fmaxf(sc[nt * 4 + 2], sc[nt * 4 + 3]));
+  }
+  float mx[2] = {fmaxf(fmaxf(m[0], fmaxf(t0[0], t0[1])), fmaxf(t0[2], t0[3])),
+                 fmaxf(fmaxf(m[1], fmaxf(t1[0], t1[1])), fmaxf(t1[2], t1[3]))};
+  float mb[2];  // the row's base in log2 units
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+    mb[r] = mx[r] == -INFINITY ? 0.f : mx[r] * LOG2E;
+    alpha[r] = ex2(fmaf(m[r], LOG2E, -mb[r]));
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int i = 0; i < BLOCK_N / 2; ++i)
+    sc[i] = ex2(fmaf(sc[i], LOG2E, -mb[(i >> 1) & 1]));  // p = exp(s - max)
+  // row sums of p, in 4 interleaved chains per row
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    t0[c] = sc[c * 4] + sc[c * 4 + 1];
+    t1[c] = sc[c * 4 + 2] + sc[c * 4 + 3];
+  }
+#pragma unroll
+  for (int nt = 4; nt < NT; ++nt) {
+    t0[nt % 4] += sc[nt * 4] + sc[nt * 4 + 1];
+    t1[nt % 4] += sc[nt * 4 + 2] + sc[nt * 4 + 3];
+  }
+  t0[0] = (t0[0] + t0[1]) + (t0[2] + t0[3]);
+  t1[0] = (t1[0] + t1[1]) + (t1[2] + t1[3]);
+  l[0] = l[0] * alpha[0] + t0[0];
+  l[1] = l[1] * alpha[1] + t1[0];
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NUM_THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int H, int Sq, int Skv, int q_off, int kv_off, float scale,
-                 int causal) {
-  constexpr int LDS = HD + PAD;         // row stride of Qs, Ks and Vs
-  constexpr int TILE = BLOCK_N * LDS;   // one K or V buffer
-  constexpr int CHUNKS = HD / 8;        // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BLOCK_M * LDS;   // [2][BLOCK_N][LDS]
-  __nv_bfloat16* Vs = Ks + 2 * TILE;        // [2][BLOCK_N][LDS]
-
-  // latest q tiles first: under a causal mask they carry the most kv tiles
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * BLOCK_M;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const __nv_bfloat16* qp = q + bh * Sq * HD;
-  const __nv_bfloat16* kp = k + bh * Skv * HD;
-  const __nv_bfloat16* vp = v + bh * Skv * HD;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group, column pair
-  const int r0 = warp * 16 + g;           // this thread's rows: r0 and r0 + 8
-
-  // kv tiles to visit, and how many of them need no mask
-  const int nk = (Skv + BLOCK_N - 1) / BLOCK_N;
-  int n_tiles = nk;
-  int n_full = Skv / BLOCK_N;
-  if (causal) {
-    const long long last_q = (long long)q_off + min(q_start + BLOCK_M, Sq) - 1;
-    const long long span = last_q - kv_off;            // last visible kv index
-    const long long tiles = span < 0 ? 0 : span / BLOCK_N + 1;
-    n_tiles = tiles < nk ? (int)tiles : nk;
-    // tiles whose every column is at or before the block's first row
-    const long long full = (long long)q_off + q_start - kv_off + 1;
-    const long long full_tiles = full < 0 ? 0 : full / BLOCK_N;
-    if (full_tiles < n_full) n_full = (int)full_tiles;
-  }
-
-  // start copying K/V tile `tile` into buffer `buf`; rows past Skv are zeros
-  auto load_kv = [&](int tile, int buf) {
-    const int kv_start = tile * BLOCK_N;
-    for (int c = tid; c < BLOCK_N * CHUNKS; c += NUM_THREADS) {
-      const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
-      const bool valid = kv_start + r < Skv;
-      const size_t off = valid ? (size_t)(kv_start + r) * HD + col : 0;
-      cp_async_16(Ks + buf * TILE + r * LDS + col, kp + off, valid);
-      cp_async_16(Vs + buf * TILE + r * LDS + col, vp + off, valid);
-    }
-  };
-  if (n_tiles > 0) load_kv(0, 0);
-  cp_async_commit();
-
-  // q * scale in bf16, as the TPU kernel folds it (exact at hd = 64)
-  const float scale_bf = __bfloat162float(__float2bfloat16(scale));
-  for (int c = tid; c < BLOCK_M * CHUNKS; c += NUM_THREADS) {
-    const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (q_start + r < Sq)
-      raw = *reinterpret_cast<const uint4*>(qp + (size_t)(q_start + r) * HD + col);
-    __nv_bfloat162* pr = reinterpret_cast<__nv_bfloat162*>(&raw);
+__device__ __forceinline__ void rescale_o(float (&acc)[HD / 2], const float (&alpha)[2]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(pr[i]);
-      pr[i] = __floats2bfloat162_rn(f.x * scale_bf, f.y * scale_bf);
+  for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+}
+
+// p packed as bf16 into the A operand of o += p.v: k-step kt takes the
+// accumulator's column tiles 2kt and 2kt + 1
+template <int BLOCK_N>
+__device__ __forceinline__ void pack_p(const float (&sc)[BLOCK_N / 2],
+                                       uint32_t (&pa)[BLOCK_N / 16][4]) {
+#pragma unroll
+  for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
+    pa[nt / 2][(nt % 2) * 2] = pack_bf16(sc[nt * 4], sc[nt * 4 + 1]);
+    pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(sc[nt * 4 + 2], sc[nt * 4 + 3]);
+  }
+}
+
+// o += p . v for one kv tile at shared address vs, committed as one group:
+// v is an MN-major B operand (transposed by the instruction); a 16-row step
+// moves two 1024-byte row groups, and at hd 128 the second 64-column box is
+// KV_BOX_BYTES further (the leading byte offset)
+template <int HD, int BLOCK_N>
+__device__ __forceinline__ void pv_product(float (&acc)[HD / 2],
+                                           const uint32_t (&pa)[BLOCK_N / 16][4],
+                                           uint32_t vs) {
+#pragma unroll
+  for (int kt = 0; kt < BLOCK_N / 16; ++kt)
+    wgmma_rs<HD, 1>(acc, pa[kt], sw128_desc(vs + kt * 2048, Cfg<HD>::KV_BOX_BYTES), 1);
+  wgmma_commit();
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NUM_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse,
+                 const Problem p, float scale) {
+  using C = Cfg<HD>;
+  constexpr int BLOCK_N = C::BLOCK_N, STAGES = C::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle repeats every 1024 bytes
+  const unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sq = base;                      // q: BOXES boxes of [128 rows][64 cols]
+  const uint32_t skv = base + C::Q_BYTES;        // stage s: K then V at skv + s * STAGE_BYTES
+  const uint32_t so = base + C::O_OFFSET;        // warpgroup cw's o at so + cw * O_WG_BYTES
+  const uint32_t bars = base + C::BAR_OFFSET;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  const uint32_t full0 = bars + 16, empty0 = bars + 16 + 8 * STAGES;  // + 8 * stage
+
+  const int tid = threadIdx.x;
+  const int n_work = p.n_qt * p.BH;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMER_WARPS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMER_WARPS);
     }
-    *reinterpret_cast<uint4*>(Qs + r * LDS + col) = raw;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  uint32_t qa[HD / 16][4];
+  if (__shfl_sync(FULL, tid / 128, 0) == 0) {  // warp-uniform to the compiler
+    // ---- producer warpgroup: one thread keeps the TMA loads in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      int it = 0;  // kv tiles loaded by this block so far: stage and phase
+      for (int n = 0, w; (w = nth_item(n, n_work)) >= 0; ++n) {
+        int qt, bh;
+        work_item(w, p, qt, bh);
+        const int q_start = qt * BLOCK_M;
+        mbar_wait(q_empty, (n & 1) ^ 1);  // the consumers hold q in registers
+        mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const __nv_bfloat16* qr = Qs + r0 * LDS + kk * 16 + 2 * t;
-    qa[kk][0] = ld_u32(qr);
-    qa[kk][1] = ld_u32(qr + 8 * LDS);
-    qa[kk][2] = ld_u32(qr + 8);
-    qa[kk][3] = ld_u32(qr + 8 * LDS + 8);
-  }
-
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float acc[HD / 8][4];
+        for (int b = 0; b < C::BOXES; ++b)
+          tma_load_3d(sq + b * C::Q_BOX_BYTES, &tm_q, q_full, b * BOX_COLS, q_start, bh);
+        const int n_tiles = kv_tiles<BLOCK_N>(q_start, p);
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(empty0 + 8 * s, ((it / STAGES) & 1) ^ 1);
+          const uint32_t full = full0 + 8 * s;
+          mbar_expect_tx(full, C::STAGE_BYTES);
+          const uint32_t ks = skv + s * C::STAGE_BYTES, vs = ks + C::KV_TILE_BYTES;
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  // ldmatrix.x4.trans: lane l addresses row l % 8 of matrix l / 8
-  const int ld_row = (lane & 7) + ((lane >> 3) & 1) * 8, ld_col = (lane >> 4) * 8;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv_start = j * BLOCK_N;
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) load_kv(j + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_1();  // tile j has landed (tile j + 1 may still be in flight)
-    __syncthreads();
-    const __nv_bfloat16* Kb = Ks + buf * TILE;
-    const __nv_bfloat16* Vb = Vs + buf * TILE;
-
-    // s = (q * scale) . k^T, f32
-    float s[BLOCK_N / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = Kb + (nt * 8 + g) * LDS + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        mma_16816(s[nt], qa[kk], ld_u32(kr + kk * 16), ld_u32(kr + kk * 16 + 8));
-    }
-
-    if (j >= n_full) {  // diagonal or ragged tile: mask by global position
-      const long long row_g = (long long)q_off + q_start + r0;
-#pragma unroll
-      for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = kv_start + nt * 8 + 2 * t + (i & 1);
-          const long long row = row_g + (i >> 1) * 8;
-          if (col >= Skv || (causal && (long long)kv_off + col > row))
-            s[nt][i] = -INFINITY;
+          for (int b = 0; b < C::BOXES; ++b) {
+            tma_load_3d(ks + b * C::KV_BOX_BYTES, &tm_k, full, b * BOX_COLS, j * BLOCK_N, bh);
+            tma_load_3d(vs + b * C::KV_BOX_BYTES, &tm_v, full, b * BOX_COLS, j * BLOCK_N, bh);
+          }
         }
       }
     }
+  } else {
+    // ---- consumer warpgroups: 64 q rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int cw = __shfl_sync(FULL, tid / 128, 0) - 1;  // warp-uniform to the compiler
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;  // accumulator row group, column pair
+    const int r0 = cw * WG_ROWS + warp * 16 + g;  // this thread's tile rows: r0, r0 + 8
+    const float scale_bf = __bfloat162float(__float2bfloat16(scale));
+    int it = 0;  // kv tiles consumed by this block so far: stage and phase
+    for (int n = 0, w; (w = nth_item(n, n_work)) >= 0; ++n) {
+      int qt, bh;
+      work_item(w, p, qt, bh);
+      const int q_start = qt * BLOCK_M;
+      const int n_tiles = kv_tiles<BLOCK_N>(q_start, p);
+      // kv tiles visible to every row of this warpgroup, unmasked
+      int n_full = p.Skv / BLOCK_N;
+      if (p.causal) {
+        const long long seen = (long long)p.q_off + q_start + cw * WG_ROWS - p.kv_off + 1;
+        const long long full_tiles = seen < 0 ? 0 : seen / BLOCK_N;
+        if (full_tiles < n_full) n_full = (int)full_tiles;
+      }
 
-    // online softmax; a row's 64 columns are spread over the 4 threads of a quad
-    float mx[2] = {m[0], m[1]};
+      // q * scale in bf16 (as the TPU kernel folds it), as wgmma A fragments
+      mbar_wait(q_full, n & 1);
+      uint32_t qa[HD / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float base[2], alpha[2];
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const unsigned char* box = smem + (kk / 4) * C::Q_BOX_BYTES + 4 * t;
+        const int c = 2 * (kk % 4);
+        const int offs[4] = {swizzled(r0, c), swizzled(r0 + 8, c), swizzled(r0, c + 1),
+                             swizzled(r0 + 8, c + 1)};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // no visible key yet: p = 0
-      alpha[r] = __expf(m[r] - base[r]);
-      m[r] = mx[r];
-    }
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(box + offs[i]));
+          qa[kk][i] = pack_bf16(f.x * scale_bf, f.y * scale_bf);
+        }
+      }
+      // the next TMA write of q (async proxy) comes after these reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty);
 
-    uint32_t pa[BLOCK_N / 16][4];  // p in bf16, as A fragments of p.v
-    float rs[2] = {0.f, 0.f};
+      float m[2] = {-INFINITY, -INFINITY};  // running max, natural units
+      float l[2] = {0.f, 0.f};
+      float acc[HD / 2];  // o: HD / 8 column tiles x 4, the m64nHD accumulator
 #pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-      const float p0 = __expf(s[nt][0] - base[0]);
-      const float p1 = __expf(s[nt][1] - base[0]);
-      const float p2 = __expf(s[nt][2] - base[1]);
-      const float p3 = __expf(s[nt][3] - base[1]);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      pa[nt / 2][(nt % 2) * 2] = pack_bf16(p0, p1);
-      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+      float sc[BLOCK_N / 2];         // s, then p in f32: the m64nBLOCK_N accumulator
+      uint32_t pa[BLOCK_N / 16][4];  // p in bf16: the A operand of o += p.v
+      const long long row_g = (long long)p.q_off + q_start + r0;
+
+      // Per kv tile: s = q.k^T, the online softmax on the accumulator in
+      // registers, o += p.v, then the stage goes back to the producer. A
+      // warpgroup waits for each of its products; the other warpgroup's
+      // softmax runs meanwhile.
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+        const uint32_t kv = skv + s * C::STAGE_BYTES;
+        pin(sc);
+        wgmma_fence();
+        s_product<HD, BLOCK_N>(sc, qa, kv);
+        wgmma_wait();
+        pin(sc);
+        float alpha[2];  // the factor o and l are rescaled by
+        softmax_step<BLOCK_N>(sc, m, l, alpha, j >= n_full, j * BLOCK_N, row_g, p, t);
+        pack_p<BLOCK_N>(sc, pa);
+        rescale_o<HD>(acc, alpha);
+        pin(acc);
+        wgmma_fence();
+        pv_product<HD, BLOCK_N>(acc, pa, kv + C::KV_TILE_BYTES);
+        wgmma_wait();
+        pin(acc);
+        if (lane == 0) mbar_arrive(empty0 + 8 * s);
+      }
+
+      // epilogue: o = acc / l in bf16, lse = m + log(l); l == 0 gives 0, -1e30.
+      // o goes through this warpgroup's swizzled staging tile in shared
+      // memory and one TMA store a 64-column box, which drops rows past Sq.
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(FULL, l[r], 1);
+        l[r] += __shfl_xor_sync(FULL, l[r], 2);
+      }
+      const float inv0 = l[0] > 0.f ? 1.f / l[0] : 0.f;
+      const float inv1 = l[1] > 0.f ? 1.f / l[1] : 0.f;
+      const uint32_t stage_o = so + cw * C::O_WG_BYTES;
+      // this thread's rows in the staging tile are warp * 16 + g and 8 rows
+      // further; both swizzle their 16-byte chunks by g
+      const uint32_t row_o = stage_o + (warp * 16 + g) * 128 + 4 * t, swz = g << 4;
+      if (tid % 128 == 0) bulk_wait_read();  // the last item's store has read the tile
+      wg_sync(cw);
 #pragma unroll
-    for (int kt = 0; kt < BLOCK_N / 16; ++kt) {
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        const uint32_t a = row_o + (dt / 8) * (WG_ROWS * 128) + (((dt % 8) << 4) ^ swz);
+        st_shared_u32(a, pack_bf16(acc[dt * 4] * inv0, acc[dt * 4 + 1] * inv0));
+        st_shared_u32(a + 8 * 128, pack_bf16(acc[dt * 4 + 2] * inv1, acc[dt * 4 + 3] * inv1));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for the TMA
+      wg_sync(cw);
+      if (tid % 128 == 0) {
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; dt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Vb + (kt * 16 + ld_row) * LDS + dt * 8 + ld_col);
-        mma_16816(acc[dt], pa[kt], b[0], b[1]);
-        mma_16816(acc[dt + 1], pa[kt], b[2], b[3]);
+        for (int b = 0; b < C::BOXES; ++b)
+          tma_store_3d(&tm_o, stage_o + b * (WG_ROWS * 128), b * BOX_COLS,
+                       q_start + cw * WG_ROWS, bh);
+        bulk_commit();
+      }
+      const int row0 = q_start + r0, row1 = row0 + 8;
+      if (t == 0) {
+        float* lp = lse + (size_t)bh * p.Sq;
+        if (row0 < p.Sq) lp[row0] = l[0] > 0.f ? m[0] + logf(l[0]) : NEG_BIG;
+        if (row1 < p.Sq) lp[row1] = l[1] > 0.f ? m[1] + logf(l[1]) : NEG_BIG;
       }
     }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
+    if (tid % 128 == 0) bulk_wait_all();  // the stores are done before the block ends
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(FULL, l[r], 1);
-    l[r] += __shfl_xor_sync(FULL, l[r], 2);
-  }
-  const float l0 = l[0] > 0.f ? l[0] : 1.f;
-  const float l1 = l[1] > 0.f ? l[1] : 1.f;
-  const int row0 = q_start + r0, row1 = row0 + 8;
-  __nv_bfloat16* op = o + bh * Sq * HD;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (row0 < Sq)
-      *reinterpret_cast<uint32_t*>(op + (size_t)row0 * HD + col) =
-          pack_bf16(acc[dt][0] / l0, acc[dt][1] / l0);
-    if (row1 < Sq)
-      *reinterpret_cast<uint32_t*>(op + (size_t)row1 * HD + col) =
-          pack_bf16(acc[dt][2] / l1, acc[dt][3] / l1);
-  }
-  if (t == 0) {
-    float* lp = lse + bh * Sq;
-    if (row0 < Sq) lp[row0] = l[0] > 0.f ? m[0] + logf(l[0]) : NEG_BIG;
-    if (row1 < Sq) lp[row1] = l[1] > 0.f ? m[1] + logf(l[1]) : NEG_BIG;
-  }
+// ---- host side --------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
+// library needs no -lcuda; null if the driver has none
+EncodeTiledFn encoder() {
+  static const EncodeTiledFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a contiguous bf16 [BH, S, hd] tensor as a 3-D map read in boxes of
+// [1, rows, 64] with the 128-byte swizzle; a box past S reads zeros
+bool encode(CUtensorMap* map, const void* ptr, int BH, int S, int hd, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)S * hd * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)BOX_COLS, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                   strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                   int B, int H, int Sq, int Skv, int q_off, int kv_off,
-                   float scale, int causal, cudaStream_t stream) {
-  // Qs, then two K and two V buffers: 46 KB at hd = 64, 87 KB at hd = 128
-  constexpr int smem = (BLOCK_M + 4 * BLOCK_N) * (HD + PAD) * 2;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
+                   int B, int H, int Sq, int Skv, int q_off, int kv_off, float scale,
+                   int causal, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  if (encoder() == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv, to;
+  if (!encode(&tq, q, B * H, Sq, HD, BLOCK_M) || !encode(&tk, k, B * H, Skv, HD, C::BLOCK_N) ||
+      !encode(&tv, v, B * H, Skv, HD, C::BLOCK_N) || !encode(&to, o, B * H, Sq, HD, WG_ROWS))
+    return cudaErrorInvalidValue;
+  // once per device: the kernel's shared-memory limit, and the SM count
+  static int sm_count[64] = {};  // 0: not yet set on that device
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidDevice;
+  if (sm_count[device] == 0) {
+    int sms = 0;
+    if ((err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM)) !=
+            cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+            cudaSuccess)
+      return err;
+    sm_count[device] = sms;
   }
-  const dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, H, B);
-  flash_fwd_kernel<HD><<<grid, NUM_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), H, Sq, Skv, q_off, kv_off, scale, causal);
+  const int sms = sm_count[device];
+  const Problem p{B * H, Sq, Skv, q_off, kv_off, causal, (Sq + BLOCK_M - 1) / BLOCK_M};
+  const int work = p.n_qt * p.BH;
+  flash_fwd_kernel<HD><<<work < sms ? work : sms, NUM_THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, to, static_cast<float*>(lse), p, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous bf16 [B, H, S, hd], 16-byte aligned; lse: f32
-// [B, H, Sq]. Returns the launch's cudaGetLastError() (0 on success).
+// [B, H, Sq]. Returns the launch's cudaGetLastError() (0 on success), or
+// an error code if the tensor maps cannot be made.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int Sq,
                               int Skv, int hd, int q_off, int kv_off,
@@ -332,4 +721,10 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Dynamic shared memory a launch at head dim hd requests, in bytes (0 for
+// an hd the kernel does not take).
+extern "C" int flash_fwd_smem_bytes(int hd) {
+  return hd == 64 ? Cfg<64>::SMEM : hd == 128 ? Cfg<128>::SMEM : 0;
 }

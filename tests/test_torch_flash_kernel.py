@@ -58,6 +58,16 @@ def test_build_refuses_without_a_card(monkeypatch):
         _build.load(tattn.KERNEL)
 
 
+def test_build_log_is_kept_beside_the_library(monkeypatch, tmp_path):
+    """A library built by another process still has its ptxas report."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "build_logs", {})
+    assert _build.build_log(tattn.KERNEL) == ""
+    lib = _build._library_path(tattn.KERNEL)
+    lib.with_suffix(".log").write_text("ptxas info    : Used 168 registers")
+    assert "168 registers" in _build.build_log(tattn.KERNEL)
+
+
 @pytest.mark.parametrize("kernel", [tattn.KERNEL, tattn.BWD_KERNEL])
 def test_library_name_follows_source_and_flags(kernel):
     path = _build._library_path(kernel)
@@ -82,6 +92,54 @@ def test_kernel_matches_plain_on_card(cuda_device, causal, S, hd, offsets):
     o, lse = tattn.mha_forward_kernel(q, k, v, *offsets, causal=causal)
     assert tattn.mha_forward_kernel.launches == before + 1
     ro, rl = tattn.mha_forward_plain(q, k, v, *offsets, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), ro.float(), **O_TOL)
+    torch.testing.assert_close(lse, rl, **LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,B,H,Sq,Skv,hd,offsets", [
+    (True, 2, 3, 65, 65, 64, (0, 0)),        # S not a multiple of 128
+    (False, 2, 3, 127, 127, 64, (0, 0)),
+    (True, 2, 3, 129, 129, 64, (0, 0)),
+    (True, 2, 3, 1000, 1000, 64, (0, 0)),
+    (False, 2, 3, 70, 300, 64, (0, 0)),      # Sq != Skv
+    (True, 2, 3, 200, 300, 64, (100, 0)),    # q chunk partly in the future
+    (True, 2, 3, 256, 192, 64, (0, 64)),     # first 64 rows see no key
+    (True, 2, 3, 129, 129, 128, (0, 0)),     # hd 128, ragged
+    (False, 2, 3, 1000, 1000, 128, (0, 0)),
+    (True, 2, 3, 300, 500, 128, (200, 0)),
+    (True, 1, 1, 256, 256, 64, (0, 0)),      # 2 work items: grid < SMs
+    (True, 4, 12, 1024, 1024, 64, (0, 0)),   # 384 work items: > 1 per block
+    (True, 4, 12, 640, 640, 128, (0, 0)),
+])
+def test_kernel_tiling_edges_match_plain_on_card(cuda_device, causal, B, H, Sq,
+                                                 Skv, hd, offsets):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn(B, H, Sq, hd, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(B, H, Skv, hd, generator=g, device=cuda_device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    o, lse = tattn.mha_forward_kernel(q, k, v, *offsets, causal=causal)
+    ro, rl = tattn.mha_forward_plain(q, k, v, *offsets, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), ro.float(), **O_TOL)
+    torch.testing.assert_close(lse, rl, **LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_reads_no_row_of_the_next_head_on_card(cuda_device, causal):
+    """Ragged S with B*H > 1 and v shifted by its own constant per (b, h): a
+    tile that ran past S into the next head's rows would pull o toward that
+    head's v. |v| stays below 1, where a bf16 step of o is at most 2**-8."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn(2, 3, 129, 64, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    shift = 0.25 * (torch.arange(6, device=cuda_device) - 2.5).view(2, 3, 1, 1)
+    v = (v.float() / 8 + shift).to(torch.bfloat16)
+    o, lse = tattn.mha_forward_kernel(q, k, v, causal=causal)
+    ro, rl = tattn.mha_forward_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     torch.testing.assert_close(o.float(), ro.float(), **O_TOL)
     torch.testing.assert_close(lse, rl, **LSE_TOL)
