@@ -8,20 +8,28 @@
     python3 chip_smoke.py --compare-fwd OLD/flash_fwd.cu
                                        # also time another design of the
                                        # forward kernel against this one
+    python3 chip_smoke.py --compare-bwd OLD/flash_bwd.cu
+                                       # also time the first design of the
+                                       # backward kernel (its older C entry
+                                       # point) against this one
 
 Phases, each fatal on failure (there is no CPU path and no caught phase):
 
 1. Build every hand-written kernel from ops/csrc/ with nvcc (one process per
    source, all started together) and print ptxas' report per kernel:
-   registers, static and dynamic shared memory, spills. Any spill fails.
+   registers, static and dynamic shared memory, spills, and the highest
+   register in the SASS (cuobjdump), which setmaxnreg may lift above the
+   launch count. Any spill fails.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at the edge cases, within the stated tolerances,
-   and time the kernel, the plain version and one PyTorch library call that
-   computes the same function (a yardstick the port never calls) with CUDA
-   events, and the forward wrapper's host time per call. Print the bound:
-   the larger of the bytes the function must move over 3.35 TB/s and its
-   tensor-core operations over 989 TFLOP/s (H100 SXM data sheet, dense
-   bf16).
+   main path's shapes and at the edge cases, within the stated tolerances
+   (the backward also, by mean error, against a version with its own
+   rounding points), and time the kernel, the plain version and one
+   PyTorch library call that computes the same function (a yardstick the
+   port never calls) with CUDA events, the forward wrapper's host time per
+   call, and the backward's C call alone (its three kernels, without the
+   wrapper's checks and allocations). Print the bound: the larger of the
+   bytes the function must move over 3.35 TB/s and its tensor-core
+   operations over 989 TFLOP/s (H100 SXM data sheet, dense bf16).
 3. The serving path: GPT-2-124M (full width, bf16, random weights from a
    seeded generator) in a Checkpoint, served by a TorchPredictor that
    answers 4 requests of 8 x 1024 tokens. Every launch count is set to 0
@@ -81,9 +89,17 @@ LOGITS_MEAN_TOL = 1e-2
 # and dv, relative to each reference's max-abs: both round p and ds to
 # bf16, but the kernel's p comes from its own f32 logits (another summation
 # order, the fast exp), so an entry near a rounding edge falls one bf16
-# step (2**-8 relative) the other way; dq is summed by atomics in a
-# run-dependent order.
+# step (2**-8 relative) the other way; dq is summed by bulk reduce-adds
+# in a run-dependent order.
 GRAD_REL_TOL = 2e-2
+# backward kernel vs backward_scale_on_sums (the plain version with the
+# kernel's rounding points), mean |difference| over mean |reference| per
+# gradient: with the same rounding points only entries near a bf16 rounding
+# edge fall the other way, a step each (measured on an H100: 2e-6 to 6e-6),
+# while a moved rounding point or a small error anywhere in the sums moves
+# most entries (the hd-128 kernel against the plain version, which rounds
+# q * scale and k * scale to bf16: 2.7e-3 to 3.2e-3).
+MEAN_REL_TOL = 1e-4
 # training path, flash kernels vs the plain "xla" attention path of the
 # same model and batch: the loss (about 11.0) and each parameter's
 # gradient relative to its max-abs. The plain path rounds the logits to
@@ -176,6 +192,12 @@ def rel_err(out, ref) -> float:
     return (out.float() - ref.float()).abs().max().item() / scale
 
 
+def mean_rel_err(out, ref) -> float:
+    """mean |out - ref| over mean |ref|: small only if most entries agree."""
+    scale = max(ref.float().abs().mean().item(), 1e-6)
+    return (out.float() - ref.float()).abs().mean().item() / scale
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -214,6 +236,27 @@ def ptxas_report(log: str):
     return entries
 
 
+def sass_highest_registers(lib: Path) -> dict:
+    """Per entry function of a built library: the highest general register
+    its SASS names (`R237`), from cuobjdump beside nvcc."""
+    from ray_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    top, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            top[cur] = None
+        elif cur is not None:
+            for r in re.findall(r"\bR(\d+)\b", line):
+                if top[cur] is None or int(r) > int(top[cur][1:]):
+                    top[cur] = f"R{r}"
+    return top
+
+
 def build():
     from ray_tpu_torch.ops import _build, attention
 
@@ -222,12 +265,14 @@ def build():
     _build.build_all(kernels)   # one nvcc per source, all started together
     log(f"[build] {', '.join(k + '.cu' for k in kernels)} built for sm_90a "
         f"in {time.perf_counter() - t0:.1f} s")
-    smem_bytes = _build.load(attention.KERNEL).flash_fwd_smem_bytes
+    smem_bytes = {name: getattr(_build.load(name), f"{name}_smem_bytes")
+                  for name in kernels}
     spills = []
     for name in kernels:
         build_log = _build.build_log(name)
         if not ptxas_report(build_log):
             fail(f"no ptxas report for {name}.cu")
+        top_reg = sass_highest_registers(_build._library_path(name))
         for line in build_log.splitlines():
             if "wgmma" in line or "warning" in line.lower():
                 log(f"[build]   {name}: {line.strip()}")
@@ -235,9 +280,10 @@ def build():
             row = dict(kernel=name, template=e["template"],
                        registers=e["registers"], smem_static=e["smem_static"],
                        spill_stores=e["spill_stores"],
-                       spill_loads=e["spill_loads"])
-            if name == attention.KERNEL and e["template"]:
-                row["smem_dynamic"] = smem_bytes(int(e["template"][0]))
+                       spill_loads=e["spill_loads"],
+                       sass_highest_register=top_reg.get(e["entry"]))
+            if f"{name}_kernelILi" in e["entry"]:   # the main kernel's <HD>
+                row["smem_dynamic"] = smem_bytes[name](int(e["template"][0]))
             log(f"[build] {json.dumps(row)}")
             if e["spill_stores"] or e["spill_loads"]:
                 spills.append(row)
@@ -343,9 +389,7 @@ def compare_forward(src: str, gen):
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
                    check=True, capture_output=True, text=True, timeout=600)
-    fn = ctypes.CDLL(str(out)).flash_fwd_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn = A._entry(ctypes.CDLL(str(out)), "flash_fwd_bf16", 5)
 
     def old(q, k, v):
         o, lse = torch.empty_like(q), torch.empty(q.shape[:3], device="cuda")
@@ -389,6 +433,115 @@ def sdpa_backward(q, k, v, do, causal):
         do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
 
 
+def backward_scale_on_sums(q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True):
+    """mha_backward_plain with the kernel's rounding points: the scale,
+    rounded to bf16, multiplies the f32 sums q.k^T, ds^T.q and ds.k rather
+    than q and k before the products. The same function as the plain
+    version where the scale is a power of two (hd 64); at hd 128 the one the
+    kernel computes."""
+    from ray_tpu_torch.ops import attention as A
+
+    Sq, Skv, hd = q.shape[2], k.shape[2], q.shape[3]
+    sc = float(torch.tensor(hd ** -0.5, dtype=torch.bfloat16))
+    qf, kf, dof = q.float(), k.float(), do.float()
+    p = torch.exp(qf @ kf.transpose(-1, -2) * sc - lse[..., None])
+    if causal:
+        rows = q_off + torch.arange(Sq, device=q.device)[:, None]
+        cols = kv_off + torch.arange(Skv, device=q.device)[None, :]
+        p = p.masked_fill(rows < cols, 0.0)
+    dv = p.to(do.dtype).float().transpose(-1, -2) @ dof
+    dp = dof @ v.float().transpose(-1, -2)
+    ds = (p * (dp - A._delta(o, do)[..., None])).to(q.dtype).float()
+    dk = ds.transpose(-1, -2) @ qf * sc
+    dq = ds @ kf * sc
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def backward_call(q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True):
+    """The backward's C call alone, on outputs and scratch allocated once:
+    its three kernels (prologue, main kernel, dq's cast) without the
+    wrapper's checks and allocations."""
+    from ray_tpu_torch.ops import _build, attention as A
+
+    B, H, Sq, hd = q.shape
+    lib = _build.load(A.BWD_KERNEL)
+    scratch = torch.empty(A._scratch_bytes(lib)(B * H, Sq, hd) // 4,
+                          dtype=torch.float32, device="cuda")
+    outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    fn = A._entry(lib, "flash_bwd_bf16", 10)
+    ptrs = [x.data_ptr() for x in (q, k, v, o, do, lse, *outs, scratch)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        _build.check(fn(*ptrs, B, H, Sq, k.shape[2], hd, q_off, kv_off,
+                        hd ** -0.5, int(causal), stream), "flash_bwd_bf16")
+        return outs
+    return call
+
+
+def compare_backward(src: str, gen):
+    """Time the flash_bwd built from another source `src` with the first
+    design's C entry point (delta and a zeroed f32 dq from the caller; e.g.
+    that design unpacked from git history) against the one in ops/csrc/, in
+    turns old, new, new, old, at the training and serving shapes and at
+    hd 128. The old one is called as its wrapper called it: delta in
+    PyTorch, dq zeroed, cast after. Both are first held against the plain
+    version, and SDPA's flash backward is timed beside them."""
+    from ray_tpu_torch.ops import _build, attention as A
+
+    out = _build.BUILD_DIR / "libflash_bwd_compare.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
+                           check=True, capture_output=True, text=True, timeout=600)
+    spills = sum(e["spill_stores"] + e["spill_loads"]
+                 for e in ptxas_report(built.stdout + built.stderr))
+    old, new = _caller_delta_entry_call(ctypes.CDLL(str(out))), A.mha_backward_kernel
+
+    for B, hd in ((TRAIN_BATCH, 64), (REQUEST_BATCH, 64), (REQUEST_BATCH, 128)):
+        q, k, v, do = (torch.randn(B, 12, 1024, hd, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16) for _ in range(4))
+        o, lse = A.mha_forward_kernel(q, k, v)
+        args = (q, k, v, o, lse, do)
+        ref = A.mha_backward_plain(*args)
+        errs = {}
+        for name, f in (("old", old), ("new", new)):
+            got = f(*args)
+            torch.cuda.synchronize()
+            errs[name] = {n: rel_err(a, b)
+                          for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
+        del ref
+        ms = [cuda_ms(lambda f=f: f(*args)) for f in (old, new, new, old)]
+        row = dict(shape=[B, 12, 1024, hd], src=src, spill_bytes=spills,
+                   rel_err=errs, old_ms=[ms[0], ms[3]], new_ms=[ms[1], ms[2]],
+                   speedup=(ms[0] + ms[3]) / (ms[1] + ms[2]),
+                   sdpa_backward_ms=cuda_ms(sdpa_backward(q, k, v, do, True)))
+        log(f"[compare-bwd] {json.dumps(row)}")
+        if not all(e <= GRAD_REL_TOL for d in errs.values() for e in d.values()):
+            fail(f"compared backward kernels disagree with the plain version: "
+                 f"{errs}")
+
+
+def _caller_delta_entry_call(lib):
+    """A source with the first design's C entry point, called as its wrapper
+    called it: delta in PyTorch, dq zeroed in f32, cast after."""
+    from ray_tpu_torch.ops import _build, attention as A
+
+    fn = A._entry(lib, "flash_bwd_bf16", 9)
+
+    def call(q, k, v, o, lse, do):
+        delta = A._delta(o, do)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        B, H, S, hd = q.shape
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), B, H, S, S, hd, 0, 0, hd ** -0.5, 1,
+                 torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "flash_bwd_bf16 (compared source)")
+        return dq.to(q.dtype), dk, dv
+    return call
+
+
 def backward_cases(gen):
     from ray_tpu_torch.ops import attention as A
 
@@ -405,15 +558,23 @@ def backward_cases(gen):
         errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), out, ref)}
         max_abs = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(out, ref))
+        model = backward_scale_on_sums(*args, causal=causal)
+        mean_errs = {ref_name: {n: mean_rel_err(a, b)
+                                for n, a, b in zip(("dq", "dk", "dv"), out, r)}
+                     for ref_name, r in (("model", model), ("plain", ref))}
+        del model, ref
         ms = cuda_ms(lambda: A.mha_backward_kernel(*args, causal=causal))
+        kernel_ms = cuda_ms(backward_call(*args, causal=causal))
         plain_ms = cuda_ms(lambda: A.mha_backward_plain(*args, causal=causal),
                            iters=3, warmup=1)
         library_ms = cuda_ms(library) if library else None
         bound_ms, bound_by, nbytes, flops = attention_bwd_bound(
             q, k, q_off, kv_off, causal)
         row = dict(case=name, shape=list(q.shape), skv=k.shape[2], q_off=q_off,
-                   kv_off=kv_off, causal=causal, rel_err=errs, max_abs_err=max_abs,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   kv_off=kv_off, causal=causal, rel_err=errs,
+                   mean_rel_err=mean_errs, max_abs_err=max_abs,
+                   ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
                    library="sdpa flash backward alone" if library else None,
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                    flops=flops, bound_share=bound_ms / ms)
@@ -421,6 +582,9 @@ def backward_cases(gen):
         if not all(e <= GRAD_REL_TOL for e in errs.values()):
             fail(f"flash_bwd case {name}: relative errors {errs} "
                  f"(tol {GRAD_REL_TOL})")
+        if not all(e <= MEAN_REL_TOL for e in mean_errs["model"].values()):
+            fail(f"flash_bwd case {name}: mean relative errors against its "
+                 f"rounding points {mean_errs['model']} (tol {MEAN_REL_TOL})")
         return row, out
 
     def forward(q, k, v, causal=True):
@@ -561,7 +725,8 @@ def main_path(card: str, profile: bool):
 
 
 _CATEGORIES = (        # kernel name fragment -> category, first match wins
-    ("flash_fwd_kernel", "flash_fwd"), ("flash_bwd_kernel", "flash_bwd"),
+    ("flash_fwd_kernel", "flash_fwd"),
+    ("flash_bwd", "flash_bwd (prologue, main kernel, dq cast)"),
     ("nvjet", "matrix products (cuBLAS)"), ("gemm", "matrix products (cuBLAS)"),
     ("reduce_kernel", "reductions"), ("copy", "copies and casts"),
     ("elementwise", "other elementwise"),
@@ -696,6 +861,9 @@ def main() -> int:
     parser.add_argument("--compare-fwd", metavar="SRC",
                         help="also time flash_fwd built from SRC (same C "
                              "entry point) against the current one")
+    parser.add_argument("--compare-bwd", metavar="SRC",
+                        help="also time flash_bwd built from SRC (the first "
+                             "design's C entry point) against the current one")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -715,6 +883,8 @@ def main() -> int:
     if args.compare_fwd:
         compare_forward(args.compare_fwd, gen)
     bwd = backward_cases(gen)
+    if args.compare_bwd:
+        compare_backward(args.compare_bwd, gen)
     serve_launches = main_path(card, args.profile)
     train_launches = train_path(card, args.profile)
 

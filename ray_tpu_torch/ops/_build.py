@@ -6,10 +6,12 @@ PyTorch header, so `nvcc` builds it in seconds into a shared library:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/torch_kernels/lib<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale one is never loaded. Libraries are built at
-first use into `build/torch_kernels/` at the root of the checkout (listed in
-.gitignore); `build_all` starts one `nvcc` per source at once.
+The library name carries a hash of the source, of every header under
+csrc/ (`*.cuh`, which the sources include) and of the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Libraries
+are built at first use into `build/torch_kernels/` at the root of the
+checkout (listed in .gitignore); `build_all` starts one `nvcc` per source at
+once.
 
 There is no substitute for a missing compiler or card: `load` raises.
 """
@@ -52,8 +54,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -68,10 +68,11 @@ def mha_forward_plain(
     return o, lse[..., 0]
 
 
-def _entry(kernel: str, symbol: str, n_pointers: int):
-    """The C entry point `symbol` of csrc/<kernel>.cu: n_pointers pointers,
-    then B, H, Sq, Skv, hd, q_off, kv_off, scale, causal and the stream."""
-    fn = getattr(_build.load(kernel), symbol)
+def _entry(lib: ctypes.CDLL, symbol: str, n_pointers: int):
+    """The C entry point `symbol` of a kernel library (`_build.load`):
+    n_pointers pointers, then B, H, Sq, Skv, hd, q_off, kv_off, scale,
+    causal and the stream."""
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7
@@ -130,7 +131,7 @@ def mha_forward_kernel(
     B, H, Sq, hd = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = _entry(KERNEL, "flash_fwd_bf16", 5)
+    fn = _entry(_build.load(KERNEL), "flash_fwd_bf16", 5)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -166,8 +167,8 @@ def _mha_forward_bhsd(
 # --------------------------------------------------------------------------- #
 
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """rowsum(do * o) in f32, [B, H, Sq]: computed outside the kernel, as
-    the reference does."""
+    """rowsum(do * o) in f32, [B, H, Sq], for the plain version (the kernel
+    computes it in its own prologue)."""
     return (do.float() * o.float()).sum(dim=-1)
 
 
@@ -215,10 +216,11 @@ def mha_backward_kernel(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch csrc/flash_bwd.cu on the current stream. q, k, v, o, do:
     contiguous bf16 [B, H, S, hd] on one CUDA device, hd 64 or 128; lse:
-    f32 [B, H, Sq]. Raises on anything else. dq is summed in an f32 buffer
-    by atomics (its bits depend on the order the thread blocks run in) and
-    cast to bf16 after the launch. Counts each launch in
-    `mha_backward_kernel.launches`."""
+    f32 [B, H, Sq]. Raises on anything else. One C call launches the
+    prologue (delta = rowsum(do * o), dq's f32 accumulator zeroed), the main
+    kernel (dq summed by bulk reduce-adds, whose order varies from run to
+    run) and dq's cast to bf16; the wrapper only allocates outputs and
+    scratch. Counts each call in `mha_backward_kernel.launches`."""
     q_offset, kv_offset = _check_kernel_inputs(
         q, k, v, q_offset, kv_offset, o=o, do=do
     )
@@ -229,20 +231,34 @@ def mha_backward_kernel(
             f"flash kernel: lse must be a contiguous f32 [B, H, Sq] tensor on "
             f"{q.device}; got {lse.dtype} {tuple(lse.shape)} on {lse.device}"
         )
-    delta = _delta(o, do)
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _entry(BWD_KERNEL, "flash_bwd_bf16", 9)
+    lib = _build.load(BWD_KERNEL)
+    scratch = torch.empty(
+        _scratch_bytes(lib)(B * H, Sq, hd) // 4, dtype=torch.float32,
+        device=q.device,
+    )
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = _entry(lib, "flash_bwd_bf16", 10)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, Sq, k.shape[2], hd, q_offset, kv_offset,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        scratch.data_ptr(), B, H, Sq, k.shape[2], hd, q_offset, kv_offset,
         _default_scale(q, scale), int(causal), stream,
     )
     _build.check(err, "flash_bwd_bf16")
     mha_backward_kernel.launches += 1
-    return dq.to(q.dtype), dk, dv
+    return dq, dk, dv
+
+
+def _scratch_bytes(lib: ctypes.CDLL):
+    """flash_bwd_scratch_bytes(B * H, Sq, hd) of csrc/flash_bwd.cu: the f32
+    scratch one backward call needs (dq's accumulator, the lse and delta
+    rows)."""
+    fn = lib.flash_bwd_scratch_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
+    return fn
 
 
 mha_backward_kernel.launches = 0

@@ -57,11 +57,9 @@
 //   tiles would take 64 KB a stage, leaving room for 2 stages only.
 // Kernel times against the bound are in PERF.md.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -70,12 +68,10 @@ constexpr int WG_ROWS = 64;               // q rows per consumer warpgroup
 constexpr int NUM_CONSUMERS = 2;          // consumer warpgroups
 constexpr int NUM_THREADS = 128 * (1 + NUM_CONSUMERS);
 constexpr int CONSUMER_WARPS = 4 * NUM_CONSUMERS;
-constexpr int BOX_COLS = 64;              // bf16 columns of one TMA box: 128 bytes
 constexpr int PRODUCER_REGS = 40;         // 128 * 40 + 256 * 232 <= 65536
 constexpr int CONSUMER_REGS = 232;
 constexpr float NEG_BIG = -1e30f;         // lse of a row with no visible key
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr unsigned FULL = 0xffffffffu;
 
 template <int HD>
 struct Cfg {
@@ -99,216 +95,13 @@ struct Problem {
   int n_qt;  // 128-row q tiles per (b, h)
 };
 
-// ---- shared-memory barriers, TMA and wgmma, as PTX ------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed. (No timeout: a
-// __trap() on this path keeps ptxas from giving the consumers the registers
-// of setmaxnreg.inc, and the kernel then spills.)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one TMA box of a 3-D map at (column, row, b*h) into shared memory at dst;
-// completion is counted in bytes on barrier `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// one TMA box from shared memory at src to a 3-D map at (column, row, b*h);
-// rows past the tensor's end are not written
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
-                                             int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// wait until this thread's committed TMA stores have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// barrier over the 128 threads of consumer warpgroup cw (named barrier 3 + cw)
-__device__ __forceinline__ void wg_sync(int cw) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + cw) : "memory");
-}
-
-__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
-               : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`:
-// 8-row groups 1024 bytes apart (stride byte offset), `lbo` bytes between
-// 64-column boxes of an MN-major operand (leading byte offset)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until this warpgroup's committed products are done
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses of wgmma registers across the
-// asynchronous product
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (+)= a . B: A (64 x 16 bf16) from registers, B from shared memory by
-// descriptor (TRANS_B = 1: MN-major), f32 accumulate; scale_d = 0 overwrites d
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                  uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
-        "n"(TRANS_B));
-}
-
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
-                                                  uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
-        "n"(TRANS_B));
-}
-
-template <int N, int TRANS_B>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_b, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma width");
-  if constexpr (N == 64) {
-    wgmma_m64n64k16_rs<TRANS_B>(d, a, desc_b, scale_d);
-  } else {
-    wgmma_m64n128k16_rs<TRANS_B>(d, a, desc_b, scale_d);
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-// byte offset of 16-byte chunk `chunk` of row `row` in a 128-byte-swizzled box
-__device__ __forceinline__ int swizzled(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
+// ---- the forward's own pieces (the shared ones are in hopper.cuh) -----------
 
 // Work item -> (q tile, b*h): the latest q tiles of every head first (under
 // a causal mask they carry the most kv tiles), so the light ones fill the tail
 __device__ __forceinline__ void work_item(int w, const Problem& p, int& qt, int& bh) {
   qt = p.n_qt - 1 - w / p.BH;
   bh = w % p.BH;
-}
-
-// The i-th work item of this block, or -1 past the last. Round i deals items
-// [i * G, (i + 1) * G) over the G blocks, in reverse order on odd rounds, so
-// that a block given a heavy item in one round gets a light one in the next.
-__device__ __forceinline__ int nth_item(int i, int n_work) {
-  const int G = gridDim.x, b = blockIdx.x;
-  const int w = i * G + ((i & 1) ? G - 1 - b : b);
-  return w < n_work ? w : -1;
 }
 
 // kv tiles a q tile starting at q_start visits: under a causal mask, those
@@ -629,45 +422,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---- host side --------------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
-// library needs no -lcuda; null if the driver has none
-EncodeTiledFn encoder() {
-  static const EncodeTiledFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a contiguous bf16 [BH, S, hd] tensor as a 3-D map read in boxes of
-// [1, rows, 64] with the 128-byte swizzle; a box past S reads zeros
-bool encode(CUtensorMap* map, const void* ptr, int BH, int S, int hd, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)S * hd * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)BOX_COLS, (cuuint32_t)rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                   strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,

@@ -14,7 +14,7 @@ and the fast exp only). Backward: dq, dk and dv at 2e-2 of each
 reference's max-abs — both round p and ds to bf16, but the kernel's p
 comes from its own f32 logits (another summation order, the fast exp), so
 a p or ds near a rounding edge falls one bf16 step (2**-8 relative) the
-other way, and dq's atomics add in a run-dependent order. A gradient that
+other way, and dq's bulk reduce-adds add in a run-dependent order. A gradient that
 is 0 in exact arithmetic (S = 1: ds = p·(dp − delta) with dp = delta) is
 held in absolute terms, against a max-abs of at least 1e-3.
 """
@@ -74,6 +74,21 @@ def test_library_name_follows_source_and_flags(kernel):
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith(f"lib{kernel}-") and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("kernel", [tattn.KERNEL, tattn.BWD_KERNEL])
+def test_library_name_follows_included_headers(kernel, monkeypatch, tmp_path):
+    """A kernel's library name changes when a header its source includes
+    changes, so a header edit never loads a stale library."""
+    for src in (*_build.CSRC.glob("*.cuh"), _build.CSRC / f"{kernel}.cu"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    header = tmp_path / "hopper.cuh"
+    assert '#include "hopper.cuh"' in (tmp_path / f"{kernel}.cu").read_text()
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._library_path(kernel)
+    assert _build._library_path(kernel) == first
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._library_path(kernel) != first
 
 
 @pytest.mark.cuda
@@ -156,7 +171,7 @@ def rel_err(out, ref):
     (False, 256, 64, (0, 0)),
     (True, 1000, 64, (0, 0)),      # ragged tail
     (True, 256, 128, (0, 0)),
-    (False, 200, 128, (0, 0)),     # ragged, 32-row q tiles
+    (False, 200, 128, (0, 0)),     # ragged
     (True, 128, 64, (128, 0)),     # q chunk after the kv chunk
     (True, 64, 64, (0, 10_000)),   # kv chunk wholly in the future: all 0
     (True, 1, 64, (0, 0)),
@@ -198,6 +213,72 @@ def test_backward_offset_chunks_sum_to_the_full_backward(cuda_device):
     for i in (1, 2):
         cat = torch.cat([parts[0][i], parts[1][i]], dim=2)
         assert rel_err(cat, full[i]) <= GRAD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,B,H,Sq,Skv,hd,offsets", [
+    (True, 2, 3, 65, 65, 64, (0, 0)),        # one q tile, one ragged kv tile
+    (False, 2, 3, 127, 127, 64, (0, 0)),
+    (True, 2, 3, 129, 129, 64, (0, 0)),      # a 1-row q tile and kv tile
+    (False, 2, 3, 70, 300, 64, (0, 0)),      # Sq != Skv
+    (True, 2, 3, 200, 300, 64, (100, 0)),    # q chunk partly in the future
+    (True, 2, 3, 256, 192, 64, (0, 64)),     # first 64 rows see no key
+    (True, 2, 3, 129, 129, 128, (0, 0)),     # hd 128, ragged
+    (True, 2, 3, 300, 500, 128, (200, 0)),
+    (True, 1, 1, 256, 256, 64, (0, 0)),      # 2 work items: grid < SMs
+    (True, 4, 12, 1000, 1000, 64, (0, 0)),   # 384 work items, ragged S
+    (False, 4, 12, 1000, 1000, 128, (0, 0)),
+])
+def test_backward_tiling_edges_match_plain_on_card(cuda_device, causal, B, H, Sq,
+                                                   Skv, hd, offsets):
+    """Ragged tiles, Sq != Skv, offsets, and a persistent grid with more
+    (kv tile, head) work items than SMs."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, do = (torch.randn(B, H, Sq, hd, generator=g, device=cuda_device,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, H, Skv, hd, generator=g, device=cuda_device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    o, lse = tattn.mha_forward_kernel(q, k, v, *offsets, causal=causal)
+    args = (q, k, v, o, lse, do, *offsets)
+    out = tattn.mha_backward_kernel(*args, causal=causal)
+    ref = tattn.mha_backward_plain(*args, causal=causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), out, ref):
+        assert rel_err(a, b) <= GRAD_REL, (name, rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,hd", [(True, 64), (False, 64), (True, 128)])
+def test_backward_reads_no_row_of_the_next_head_on_card(cuda_device, causal, hd):
+    """Ragged S with B*H > 1, and v and do shifted by their own constant per
+    (b, h): a tile that ran past S into the next head's rows would pull dq,
+    dk or dv toward that head's values."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, do = (torch.randn(2, 3, 200, hd, generator=g, device=cuda_device,
+                               dtype=torch.bfloat16) for _ in range(4))
+    shift = 0.25 * (torch.arange(6, device=cuda_device) - 2.5).view(2, 3, 1, 1)
+    v = (v.float() / 8 + shift).to(torch.bfloat16)
+    do = (do.float() / 8 - shift).to(torch.bfloat16)
+    o, lse = tattn.mha_forward_kernel(q, k, v, causal=causal)
+    out = tattn.mha_backward_kernel(q, k, v, o, lse, do, causal=causal)
+    ref = tattn.mha_backward_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), out, ref):
+        assert rel_err(a, b) <= GRAD_REL, (name, rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_backward_of_a_wholly_masked_kv_chunk_is_exactly_zero(cuda_device, hd):
+    """A kv chunk wholly in the future of every q row: no q tile sees any kv
+    tile, so dk = dv = 0 and dq = 0 exactly, from a finite global lse."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, do = (torch.randn(2, 3, 300, hd, generator=g, device=cuda_device,
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = tattn.mha_forward_kernel(q, k, v)     # a finite lse
+    dq, dk, dv = tattn.mha_backward_kernel(q, k, v, o, lse, do, 0, 10_000)
+    torch.cuda.synchronize()
+    assert torch.all(dq == 0) and torch.all(dk == 0) and torch.all(dv == 0)
 
 
 @pytest.mark.cuda
