@@ -4,14 +4,14 @@
     python3 chip_smoke.py              # what the repository's check runs
     python3 chip_smoke.py --profile    # also torch.profiler breakdowns of
                                        # one request's and one training
-                                       # step's device time by kernel
+                                       # step's device time by kernel, on
+                                       # every model path
     python3 chip_smoke.py --compare-fwd OLD/flash_fwd.cu
-                                       # also time another design of the
-                                       # forward kernel against this one
     python3 chip_smoke.py --compare-bwd OLD/flash_bwd.cu
-                                       # also time the first design of the
-                                       # backward kernel (its older C entry
-                                       # point) against this one
+                                       # also time another design of a
+                                       # kernel (same C entry point, e.g.
+                                       # an earlier one from git history)
+                                       # against this one
 
 Phases, each fatal on failure (there is no CPU path and no caught phase):
 
@@ -20,23 +20,23 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    registers, static and dynamic shared memory, spills, and the highest
    register in the SASS (cuobjdump), which setmaxnreg may lift above the
    launch count. Any spill fails.
-2. Hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at the edge cases, within the stated tolerances
-   (the backward also, by mean error, against a version with its own
-   rounding points), and time the kernel, the plain version and one
-   PyTorch library call that computes the same function (a yardstick the
-   port never calls) with CUDA events, the forward wrapper's host time per
-   call, and the backward's C call alone (its three kernels, without the
-   wrapper's checks and allocations). Print the bound: the larger of the
-   bytes the function must move over 3.35 TB/s and its tensor-core
-   operations over 989 TFLOP/s (H100 SXM data sheet, dense bf16).
-3. The serving path: GPT-2-124M (full width, bf16, random weights from a
+2. Hold each kernel against its plain PyTorch version on the card, at every
+   model path's shapes and at the edge cases, within the stated tolerances
+   (the backward also by mean error, which a moved rounding point fails),
+   and time the kernel, the plain version and one PyTorch library call that
+   computes the same function (a yardstick the port never calls) with CUDA
+   events, the forward wrapper's host time per call, and the backward's C
+   call alone (its three kernels, without the wrapper's checks and
+   allocations). Print the bound: the larger of the bytes the function
+   must move over 3.35 TB/s and its tensor-core operations over 989 TFLOP/s
+   (H100 SXM data sheet, dense bf16).
+3. GPT-2 serving: GPT-2-124M (full width, bf16, random weights from a
    seeded generator) in a Checkpoint, served by a TorchPredictor that
    answers 4 requests of 8 x 1024 tokens. Every launch count is set to 0
    just before and read just after; flash_fwd must have run exactly once
    per layer per request. The logits of one batch are checked against the
    same model with the plain attention path.
-4. The training path: make_gpt2_train_step(gpt2_124m(), device="cuda") at
+4. GPT-2 training: make_gpt2_train_step(gpt2_124m(), device="cuda") at
    B 24 x 1024 tokens (bench.py's first per-chip batch, remat off), one
    warm-up step, then 8 steps on one repeated synthetic batch. Every launch
    count is set to 0 just before and read just after; flash_fwd and
@@ -45,8 +45,19 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    peak device memory and the share of 989 TFLOP/s are printed. Then the
    loss and every parameter's gradient of one B 8 batch are checked against
    the same model with the plain attention path.
-5. Print the kernels line, the card's name and power limit, and last the
-   result line {"ok": true, "device": {...}}.
+5. Llama serving: llama_7b at full depth and width (L 32, D 4096, H 32,
+   hd 128, S 4096; 27 GB of f32 weights), as phase 3, 4 requests of
+   2 x 4096 tokens: 32 flash_fwd launches a request.
+6. Llama training: make_llama_train_step(llama_1b()) at full depth and
+   width (L 22, D 2048, H 32 over 8 kv heads, hd 64, S 2048), as phase 4,
+   at B 8 x 2048 tokens; its gradients are checked on one sequence.
+7. The hd-128 backward inside a model: llama_7b at full width and S 4096,
+   cut to 2 layers, one sequence; loss and every gradient, flash kernels
+   against the plain attention path.
+   Each model path starts with the device memory the last one used freed,
+   so that the peak memory it prints is its own.
+8. Print the kernels line (each kernel's numbers by model path), the card's
+   name and power limit, and last the result line {"ok": true, ...}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -56,12 +67,14 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import json
 import math
 import re
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -92,13 +105,13 @@ LOGITS_MEAN_TOL = 1e-2
 # step (2**-8 relative) the other way; dq is summed by bulk reduce-adds
 # in a run-dependent order.
 GRAD_REL_TOL = 2e-2
-# backward kernel vs backward_scale_on_sums (the plain version with the
-# kernel's rounding points), mean |difference| over mean |reference| per
-# gradient: with the same rounding points only entries near a bf16 rounding
-# edge fall the other way, a step each (measured on an H100: 2e-6 to 6e-6),
-# while a moved rounding point or a small error anywhere in the sums moves
-# most entries (the hd-128 kernel against the plain version, which rounds
-# q * scale and k * scale to bf16: 2.7e-3 to 3.2e-3).
+# backward kernel vs its plain version (which rounds where the TPU kernel
+# rounds), mean |difference| over mean |reference| per gradient: with the
+# same rounding points only entries near a bf16 rounding edge fall the other
+# way, a step each (measured on an H100: 2e-6 to 6e-6), while a moved
+# rounding point or a small error anywhere in the sums moves most entries
+# (the scale applied to f32 sums instead of to q and k at hd 128: 2.7e-3 to
+# 3.2e-3).
 MEAN_REL_TOL = 1e-4
 # training path, flash kernels vs the plain "xla" attention path of the
 # same model and batch: the loss (about 11.0) and each parameter's
@@ -108,9 +121,32 @@ MEAN_REL_TOL = 1e-4
 # 5e-5 apart, worst gradient 7.6e-3 relative).
 LOSS_TOL = 1e-3
 GRAD_PATH_REL_TOL = 2e-2
+# the Llama paths against their plain "xla" path: llama_7b is 32 bf16
+# layers at S 4096 whose attention logits reach about 8 (GPT-2-124M's stay
+# near 1), where the plain path's bf16 rounding of the logits is a step of
+# up to 2**-4 and moves a probability by up to 3 % relative. The smoke
+# prints each path's distance from attention computed in f32 from the same
+# bf16 q, k, v (f32_attention); measured on an H100: serving logits
+# (|logits| up to 7.5) kernel 0.42 max / 0.053 mean, plain 0.66 / 0.073,
+# so 0.64 / 0.074 between them; llama_7b's gradients at 2 layers, worst
+# leaf relative to its max-abs, kernel 0.017, plain 0.031, 0.029 between
+# them. The kernel path is the nearer one; the limits hold the distance
+# between the two paths to about twice (logits) and three times
+# (gradients) what was measured, and a kernel defect (a lost mask, a wrong
+# scale or operand) moves it by O(1).
+LLAMA_LOGITS_MAX_TOL = 1.5
+LLAMA_LOGITS_MEAN_TOL = 0.15
+LLAMA_GRAD_PATH_REL_TOL = 0.1
 
 N_REQUESTS, REQUEST_BATCH = 4, 8
 TRAIN_BATCH, TRAIN_STEPS, COMPARE_BATCH = 24, 8, 8
+# llama_7b: requests of 2 x 4096 tokens; llama_1b: TinyLlama's per-GPU
+# micro-batch of 8 x 2048 tokens, its gradients checked on one sequence
+# (the plain path keeps [B, 32, 2048, 2048] probabilities per layer);
+# llama_7b's hd-128 gradients checked at 2 of its 32 layers
+LLAMA_REQUESTS, LLAMA_REQUEST_BATCH = 4, 2
+LLAMA_TRAIN_BATCH, LLAMA_COMPARE_BATCH = 8, 1
+LLAMA_GRAD_LAYERS = 2
 
 
 def fail(msg: str) -> None:
@@ -216,8 +252,8 @@ def ptxas_report(log: str):
     entries, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            args = re.findall(r"Li(\d+)E", m.group(1))
+        if m:   # int and bool template arguments, in order
+            args = re.findall(r"L[ib](\d+)E", m.group(1))
             cur = dict(entry=m.group(1), template=args, registers=None,
                        smem_static=0, spill_stores=0, spill_loads=0)
             entries.append(cur)
@@ -282,8 +318,8 @@ def build():
                        spill_stores=e["spill_stores"],
                        spill_loads=e["spill_loads"],
                        sass_highest_register=top_reg.get(e["entry"]))
-            if f"{name}_kernelILi" in e["entry"]:   # the main kernel's <HD>
-                row["smem_dynamic"] = smem_bytes[name](int(e["template"][0]))
+            if f"{name}_kernelILi" in e["entry"]:   # the main kernel's <HD, ...>
+                row["smem_dynamic"] = smem_bytes[name](*map(int, e["template"]))
             log(f"[build] {json.dumps(row)}")
             if e["spill_stores"] or e["spill_loads"]:
                 spills.append(row)
@@ -375,6 +411,11 @@ def attention_cases(gen):
     q8, k8, v8 = rand(8, 12, 1024, 128)
     rows["hd128"], _, _ = check("causal B8 H12 S1024 hd128", q8, k8, v8,
                                 library=sdpa(q8, k8, v8, True))
+    del q8, k8, v8
+    ql, kl, vl = rand(LLAMA_REQUEST_BATCH, 32, 4096, 128)
+    rows["llama_serve"], _, _ = check(
+        f"causal B{LLAMA_REQUEST_BATCH} H32 S4096 hd128 (llama_7b serving shape)",
+        ql, kl, vl, library=sdpa(ql, kl, vl, True))
     return rows
 
 
@@ -433,39 +474,17 @@ def sdpa_backward(q, k, v, do, causal):
         do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
 
 
-def backward_scale_on_sums(q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True):
-    """mha_backward_plain with the kernel's rounding points: the scale,
-    rounded to bf16, multiplies the f32 sums q.k^T, ds^T.q and ds.k rather
-    than q and k before the products. The same function as the plain
-    version where the scale is a power of two (hd 64); at hd 128 the one the
-    kernel computes."""
-    from ray_tpu_torch.ops import attention as A
-
-    Sq, Skv, hd = q.shape[2], k.shape[2], q.shape[3]
-    sc = float(torch.tensor(hd ** -0.5, dtype=torch.bfloat16))
-    qf, kf, dof = q.float(), k.float(), do.float()
-    p = torch.exp(qf @ kf.transpose(-1, -2) * sc - lse[..., None])
-    if causal:
-        rows = q_off + torch.arange(Sq, device=q.device)[:, None]
-        cols = kv_off + torch.arange(Skv, device=q.device)[None, :]
-        p = p.masked_fill(rows < cols, 0.0)
-    dv = p.to(do.dtype).float().transpose(-1, -2) @ dof
-    dp = dof @ v.float().transpose(-1, -2)
-    ds = (p * (dp - A._delta(o, do)[..., None])).to(q.dtype).float()
-    dk = ds.transpose(-1, -2) @ qf * sc
-    dq = ds @ kf * sc
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-
-
-def backward_call(q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True):
+def backward_call(q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True, lib=None):
     """The backward's C call alone, on outputs and scratch allocated once:
     its three kernels (prologue, main kernel, dq's cast) without the
-    wrapper's checks and allocations."""
+    wrapper's checks and allocations. `lib`: another build with the same C
+    entry point (default: the one of ops/csrc/)."""
     from ray_tpu_torch.ops import _build, attention as A
 
     B, H, Sq, hd = q.shape
-    lib = _build.load(A.BWD_KERNEL)
-    scratch = torch.empty(A._scratch_bytes(lib)(B * H, Sq, hd) // 4,
+    current = _build.load(A.BWD_KERNEL)
+    lib = lib or current
+    scratch = torch.empty(A._scratch_bytes(current)(B * H, Sq, hd) // 4,
                           dtype=torch.float32, device="cuda")
     outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
     fn = A._entry(lib, "flash_bwd_bf16", 10)
@@ -476,70 +495,56 @@ def backward_call(q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True):
         _build.check(fn(*ptrs, B, H, Sq, k.shape[2], hd, q_off, kv_off,
                         hd ** -0.5, int(causal), stream), "flash_bwd_bf16")
         return outs
+    call.scratch = scratch   # alive as long as the call: the kernel writes it
     return call
 
 
 def compare_backward(src: str, gen):
-    """Time the flash_bwd built from another source `src` with the first
-    design's C entry point (delta and a zeroed f32 dq from the caller; e.g.
-    that design unpacked from git history) against the one in ops/csrc/, in
-    turns old, new, new, old, at the training and serving shapes and at
-    hd 128. The old one is called as its wrapper called it: delta in
-    PyTorch, dq zeroed, cast after. Both are first held against the plain
-    version, and SDPA's flash backward is timed beside them."""
+    """Time the flash_bwd built from another source `src` with the same C
+    entry point (e.g. an earlier design unpacked from git history) against
+    the one in ops/csrc/, in turns old, new, new, old, at the training and
+    serving shapes and at hd 128. Both are first held against the plain
+    version, by max error (GRAD_REL_TOL; the old one must pass it) and by
+    mean error (printed for both), and SDPA's flash backward is timed beside
+    them."""
     from ray_tpu_torch.ops import _build, attention as A
 
     out = _build.BUILD_DIR / "libflash_bwd_compare.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
+    # a header the source includes is looked up beside it, then in csrc/
+    built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                            "-o", str(out), src],
                            check=True, capture_output=True, text=True, timeout=600)
     spills = sum(e["spill_stores"] + e["spill_loads"]
                  for e in ptxas_report(built.stdout + built.stderr))
-    old, new = _caller_delta_entry_call(ctypes.CDLL(str(out))), A.mha_backward_kernel
+    lib = ctypes.CDLL(str(out))
 
     for B, hd in ((TRAIN_BATCH, 64), (REQUEST_BATCH, 64), (REQUEST_BATCH, 128)):
         q, k, v, do = (torch.randn(B, 12, 1024, hd, generator=gen, device="cuda",
                                    dtype=torch.bfloat16) for _ in range(4))
         o, lse = A.mha_forward_kernel(q, k, v)
         args = (q, k, v, o, lse, do)
+        old, new = backward_call(*args, lib=lib), backward_call(*args)
         ref = A.mha_backward_plain(*args)
-        errs = {}
+        errs, mean_errs = {}, {}
         for name, f in (("old", old), ("new", new)):
-            got = f(*args)
+            got = f()
             torch.cuda.synchronize()
             errs[name] = {n: rel_err(a, b)
                           for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
+            mean_errs[name] = {n: mean_rel_err(a, b)
+                               for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
         del ref
-        ms = [cuda_ms(lambda f=f: f(*args)) for f in (old, new, new, old)]
+        ms = [cuda_ms(f) for f in (old, new, new, old)]
         row = dict(shape=[B, 12, 1024, hd], src=src, spill_bytes=spills,
-                   rel_err=errs, old_ms=[ms[0], ms[3]], new_ms=[ms[1], ms[2]],
+                   rel_err=errs, mean_rel_err=mean_errs,
+                   old_ms=[ms[0], ms[3]], new_ms=[ms[1], ms[2]],
                    speedup=(ms[0] + ms[3]) / (ms[1] + ms[2]),
                    sdpa_backward_ms=cuda_ms(sdpa_backward(q, k, v, do, True)))
         log(f"[compare-bwd] {json.dumps(row)}")
         if not all(e <= GRAD_REL_TOL for d in errs.values() for e in d.values()):
             fail(f"compared backward kernels disagree with the plain version: "
                  f"{errs}")
-
-
-def _caller_delta_entry_call(lib):
-    """A source with the first design's C entry point, called as its wrapper
-    called it: delta in PyTorch, dq zeroed in f32, cast after."""
-    from ray_tpu_torch.ops import _build, attention as A
-
-    fn = A._entry(lib, "flash_bwd_bf16", 9)
-
-    def call(q, k, v, o, lse, do):
-        delta = A._delta(o, do)
-        dq = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        B, H, S, hd = q.shape
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), B, H, S, S, hd, 0, 0, hd ** -0.5, 1,
-                 torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "flash_bwd_bf16 (compared source)")
-        return dq.to(q.dtype), dk, dv
-    return call
 
 
 def backward_cases(gen):
@@ -558,11 +563,9 @@ def backward_cases(gen):
         errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), out, ref)}
         max_abs = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(out, ref))
-        model = backward_scale_on_sums(*args, causal=causal)
-        mean_errs = {ref_name: {n: mean_rel_err(a, b)
-                                for n, a, b in zip(("dq", "dk", "dv"), out, r)}
-                     for ref_name, r in (("model", model), ("plain", ref))}
-        del model, ref
+        mean_errs = {n: mean_rel_err(a, b)
+                     for n, a, b in zip(("dq", "dk", "dv"), out, ref)}
+        del ref
         ms = cuda_ms(lambda: A.mha_backward_kernel(*args, causal=causal))
         kernel_ms = cuda_ms(backward_call(*args, causal=causal))
         plain_ms = cuda_ms(lambda: A.mha_backward_plain(*args, causal=causal),
@@ -582,9 +585,9 @@ def backward_cases(gen):
         if not all(e <= GRAD_REL_TOL for e in errs.values()):
             fail(f"flash_bwd case {name}: relative errors {errs} "
                  f"(tol {GRAD_REL_TOL})")
-        if not all(e <= MEAN_REL_TOL for e in mean_errs["model"].values()):
-            fail(f"flash_bwd case {name}: mean relative errors against its "
-                 f"rounding points {mean_errs['model']} (tol {MEAN_REL_TOL})")
+        if not all(e <= MEAN_REL_TOL for e in mean_errs.values()):
+            fail(f"flash_bwd case {name}: mean relative errors {mean_errs} "
+                 f"(tol {MEAN_REL_TOL})")
         return row, out
 
     def forward(q, k, v, causal=True):
@@ -634,70 +637,137 @@ def backward_cases(gen):
     o8, lse8 = forward(q8, k8, v8)
     rows["hd128"], _ = check("causal B8 H12 S1024 hd128", q8, k8, v8, o8, lse8,
                              d8, library=sdpa_backward(q8, k8, v8, d8, True))
+    del q, k, v, do, o, lse, q8, k8, v8, d8, o8, lse8, full, tail, parts
+
+    # the Llama paths' shapes: llama_1b's training step (hd 64, 32 heads,
+    # forward and backward) and llama_7b's hd-128 gradient check
+    name = f"causal B{LLAMA_TRAIN_BATCH} H32 S2048 hd64 (llama_1b training shape)"
+    q, k, v, do = rand(LLAMA_TRAIN_BATCH, 32, 2048, 64)
+    rows["fwd_llama_train"], o, lse = forward_case(name, q, k, v,
+                                                   library=sdpa(q, k, v, True))
+    rows["llama_train"], _ = check(name, q, k, v, o, lse, do,
+                                   library=sdpa_backward(q, k, v, do, True))
+    del q, k, v, do, o, lse
+    q, k, v, do = rand(1, 32, 4096, 128)
+    o, lse = forward(q, k, v)
+    rows["llama_hd128"], _ = check(
+        "causal B1 H32 S4096 hd128 (llama_7b gradient check shape)",
+        q, k, v, o, lse, do, library=sdpa_backward(q, k, v, do, True))
     return rows
 
 
 # --------------------------------------------------------------------------- #
-# Phase 3: the main path
+# Phases 3 to 7: the model paths
 # --------------------------------------------------------------------------- #
 
-def main_path(card: str, profile: bool):
-    from ray_tpu_torch.models import gpt2
+def reset_launches() -> None:
     from ray_tpu_torch.ops import attention as A
+
+    A.mha_forward_kernel.launches = 0
+    A.mha_backward_kernel.launches = 0
+
+
+def launches_since_reset() -> dict:
+    from ray_tpu_torch.ops import attention as A
+
+    return {"flash_fwd": A.mha_forward_kernel.launches,
+            "flash_bwd": A.mha_backward_kernel.launches}
+
+
+@contextmanager
+def f32_attention(model):
+    """Within the block, `model`'s attention (models.gpt2 or models.llama)
+    is computed in f32 from its bf16 q, k and v (k and v repeated to q's
+    heads as the model repeats them): a reference nearer exact arithmetic
+    than either the kernel or the plain path, to measure each against. The
+    port never runs it."""
+    def attention(q, k, v, cfg):
+        groups = q.shape[1] // k.shape[1]
+        k, v = (x.repeat_interleave(groups, dim=1) for x in (k, v))
+        S = q.shape[2]
+        s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        return (p @ v.float()).to(q.dtype)
+
+    kept, model._attention = model._attention, attention
+    try:
+        yield
+    finally:
+        model._attention = kept
+
+
+def free_device_memory() -> None:
+    """Between paths: free what the last one left, so that each path's peak
+    memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def serve_path(card: str, profile: bool, tag: str, name: str, model, cfg,
+               n_requests: int, batch: int, logits_tol) -> int:
+    """`model` (models.gpt2 or models.llama) at `cfg` with random weights from
+    a seeded generator, in a Checkpoint served by a TorchPredictor that
+    answers n_requests requests of batch x seq_len tokens. Launch counts are
+    set to 0 just before and read just after: flash_fwd must have run once
+    per layer per request, flash_bwd never. The logits of the first request
+    are checked against the same weights through the plain attention path,
+    within logits_tol = (max, mean). Returns flash_fwd's launches."""
     from ray_tpu_torch.train.batch_predictor import TorchPredictor
     from ray_tpu_torch.train.checkpoint import Checkpoint
     from ray_tpu_torch.train.train_step import synthetic_batch
 
-    cfg = gpt2.gpt2_124m()
     t0 = time.perf_counter()
-    params = gpt2.init(cfg, torch.Generator(device="cuda").manual_seed(0),
-                       device="cuda")
-    log(f"[model] gpt2_124m: {gpt2.param_count(cfg)} params, L={cfg.n_layer} "
-        f"D={cfg.d_model} H={cfg.n_head} S={cfg.seq_len} "
-        f"vocab={cfg.padded_vocab}, {cfg.dtype}; init "
+    params = model.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    log(f"[model] {name}: {model.param_count(cfg)} params, L={cfg.n_layer} "
+        f"D={cfg.d_model} H={cfg.n_head} hd={cfg.d_model // cfg.n_head} "
+        f"S={cfg.seq_len} vocab={cfg.padded_vocab}, {cfg.dtype}; init "
         f"{time.perf_counter() - t0:.2f} s")
 
     def apply_fn(params, batch):
-        logits = gpt2.forward(params, batch["tokens"], cfg)[:, -1, :cfg.vocab_size]
+        logits = model.forward(params, batch["tokens"], cfg)[:, -1, :cfg.vocab_size]
         best = logits.float().max(dim=-1)
         return {"next_token": best.indices, "logit": best.values}
 
     predictor = TorchPredictor.from_checkpoint(
         Checkpoint.from_dict({"params": params}), apply_fn=apply_fn,
         device="cuda")
-    requests = [synthetic_batch(cfg, REQUEST_BATCH, seed=i)["tokens"]
-                for i in range(N_REQUESTS)]
+    requests = [synthetic_batch(cfg, batch, seed=i)["tokens"]
+                for i in range(n_requests)]
 
     torch.cuda.synchronize()
-    A.mha_forward_kernel.launches = 0
-    A.mha_backward_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     answers, times = [], []
     for tokens in requests:
         t = time.perf_counter()
         answers.append(predictor.predict({"tokens": tokens}))  # numpy: synced
         times.append(time.perf_counter() - t)
-    launches = A.mha_forward_kernel.launches
+    launches = launches_since_reset()
+    peak = torch.cuda.max_memory_allocated()
 
-    expected = cfg.n_layer * N_REQUESTS
-    log(f"[main] flash_fwd launches: {launches} (expected {expected}), "
-        f"flash_bwd {A.mha_backward_kernel.launches} (expected 0)")
-    if launches != expected or A.mha_backward_kernel.launches:
-        fail(f"serving path launched flash_fwd {launches} times (expected "
-             f"{expected}) and flash_bwd {A.mha_backward_kernel.launches} "
-             f"(expected 0)")
+    expected = cfg.n_layer * n_requests
+    log(f"[{tag}] flash_fwd launches: {launches['flash_fwd']} (expected "
+        f"{expected}), flash_bwd {launches['flash_bwd']} (expected 0)")
+    if launches != {"flash_fwd": expected, "flash_bwd": 0}:
+        fail(f"{name} serving path launched {launches}, expected flash_fwd "
+             f"{expected} and flash_bwd 0")
     for ans in answers:
         tok, logit = ans["next_token"], ans["logit"]
-        if tok.shape != (REQUEST_BATCH,) or not (
+        if tok.shape != (batch,) or not (
                 (tok >= 0).all() and (tok < cfg.vocab_size).all()):
             fail(f"predictions out of range: {tok}")
         if not all(map(math.isfinite, logit.tolist())):
             fail(f"non-finite logits: {logit}")
-    tokens_per_request = REQUEST_BATCH * cfg.seq_len
     steady = sorted(times[1:])[len(times[1:]) // 2]
-    log("[main] " + json.dumps(dict(
-        card=card, requests=N_REQUESTS, batch=REQUEST_BATCH, seq_len=cfg.seq_len,
-        request_ms=[t * 1e3 for t in times], median_after_first_ms=steady * 1e3,
-        tokens_per_s=tokens_per_request / steady,
+    log(f"[{tag}] " + json.dumps(dict(
+        card=card, model=name, requests=n_requests, batch=batch,
+        seq_len=cfg.seq_len, request_ms=[t * 1e3 for t in times],
+        median_after_first_ms=steady * 1e3,
+        tokens_per_s=batch * cfg.seq_len / steady, peak_memory_bytes=peak,
         next_tokens=answers[0]["next_token"].tolist(),
     )))
 
@@ -705,23 +775,32 @@ def main_path(card: str, profile: bool):
     toks = torch.as_tensor(requests[0], device="cuda")
     plain_cfg = replace(cfg, attention_impl="xla")
     with torch.inference_mode():
-        lk = gpt2.forward(params, toks, cfg).float()
-        lp = gpt2.forward(params, toks, plain_cfg).float()
+        lk = model.forward(params, toks, cfg).float()
+        lp = model.forward(params, toks, plain_cfg).float()
+        with f32_attention(model):
+            lf = model.forward(params, toks, cfg).float()
+    for path, logits in (("kernel", lk), ("plain", lp)):
+        d = (logits - lf).abs()
+        log(f"[{tag}] {path} path vs attention in f32: max |err| "
+            f"{d.max().item()}, mean |err| {d.mean().item()}")
+    del lf, d
     diff = (lk - lp).abs()
     agree = (lk[:, :, :cfg.vocab_size].argmax(-1)
              == lp[:, :, :cfg.vocab_size].argmax(-1)).float().mean().item()
-    log(f"[main] logits vs plain attention path: max |err| "
-        f"{diff.max().item()} (tol {LOGITS_MAX_TOL}), mean |err| "
-        f"{diff.mean().item()} (tol {LOGITS_MEAN_TOL}), |logits| max "
+    max_tol, mean_tol = logits_tol
+    log(f"[{tag}] logits vs plain attention path: max |err| "
+        f"{diff.max().item()} (tol {max_tol}), mean |err| "
+        f"{diff.mean().item()} (tol {mean_tol}), |logits| max "
         f"{lp.abs().max().item()}, argmax agreement {agree}")
-    if not (torch.isfinite(lk).all() and diff.max().item() <= LOGITS_MAX_TOL
-            and diff.mean().item() <= LOGITS_MEAN_TOL):
-        fail("main-path logits disagree with the plain attention path")
+    if not (torch.isfinite(lk).all() and diff.max().item() <= max_tol
+            and diff.mean().item() <= mean_tol):
+        fail(f"{name} serving logits disagree with the plain attention path")
+    del lk, lp, diff
 
     if profile:
-        profile_device_time("one request",
+        profile_device_time(f"one {name} request",
                             lambda: predictor.predict({"tokens": requests[0]}))
-    return launches
+    return launches["flash_fwd"]
 
 
 _CATEGORIES = (        # kernel name fragment -> category, first match wins
@@ -766,91 +845,132 @@ def profile_device_time(what: str, fn, top: int = 12):
             f"x{e.count:<4d} {e.key[:90]}")
 
 
-# --------------------------------------------------------------------------- #
-# Phase 4: the training path
-# --------------------------------------------------------------------------- #
+def compare_gradients(tag: str, model, cfg, params, batch, grad_tol) -> None:
+    """The loss and every parameter's gradient of one batch, flash kernels
+    against the plain attention path of the same model, within LOSS_TOL and
+    grad_tol of each leaf's max-abs."""
+    from ray_tpu_torch.train.train_step import named_leaves, param_leaves
 
-def train_path(card: str, profile: bool):
-    from ray_tpu_torch.models import gpt2
-    from ray_tpu_torch.ops import attention as A
-    from ray_tpu_torch.train.train_step import (
-        default_optimizer, make_gpt2_train_step, named_leaves, param_leaves,
-        synthetic_batch,
-    )
+    leaves = param_leaves(params)
+    names = [name for name, _ in named_leaves(params)]
 
-    cfg = gpt2.gpt2_124m(remat=False)
+    def loss_and_grads(impl_cfg):
+        loss = model.loss_fn(params, batch["tokens"], batch["targets"], impl_cfg)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    (lk, gk), (lp, gp) = (loss_and_grads(c) for c in
+                          (cfg, replace(cfg, attention_impl="xla")))
+    with f32_attention(model):
+        lf, gf = loss_and_grads(cfg)
+    for path, loss, grads in (("kernel", lk, gk), ("plain", lp, gp)):
+        errs = {n: rel_err(a, b) for n, a, b in zip(names, grads, gf)}
+        far = max(errs, key=errs.get)
+        log(f"[{tag}] {path} path vs attention in f32: loss {loss} vs {lf}, "
+            f"worst gradient {far} {errs[far]}")
+    del gf
+    by_leaf = {n: rel_err(a, b) for n, a, b in zip(names, gk, gp)}
+    worst = max(by_leaf, key=by_leaf.get)
+    log(f"[{tag}] B{len(batch['tokens'])} loss flash {lk} vs plain {lp} (tol "
+        f"{LOSS_TOL}); gradient relative errors {json.dumps(by_leaf)}, worst "
+        f"{worst} {by_leaf[worst]} (tol {grad_tol})")
+    if not (abs(lk - lp) <= LOSS_TOL and by_leaf[worst] <= grad_tol):
+        fail(f"{tag}: loss or gradients disagree with the plain attention path")
+
+
+def train_path(card: str, profile: bool, tag: str, name: str, model,
+               make_train_step, cfg, batch: int, compare_batch: int,
+               grad_tol: float) -> dict:
+    """make_train_step(cfg, device="cuda") (remat as cfg says), one warm-up
+    step, then TRAIN_STEPS steps on one repeated synthetic batch of
+    batch x seq_len tokens. Launch counts are set to 0 just before the
+    steps and read just after: flash_fwd and flash_bwd must each have run
+    once per layer per step. Loss and grad norm must be finite and the loss
+    must fall. Then the loss and gradients of one compare_batch batch are
+    checked against the plain attention path (grad_tol). Returns the
+    launches."""
+    from ray_tpu_torch.train.train_step import default_optimizer, synthetic_batch
+
     t0 = time.perf_counter()
-    bundle = make_gpt2_train_step(
+    bundle = make_train_step(
         cfg, optimizer=default_optimizer(warmup=2, total_steps=1000),
         generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    batch = {k: torch.as_tensor(v, device="cuda")   # device-resident batch
-             for k, v in synthetic_batch(cfg, TRAIN_BATCH, seed=0).items()}
+    tokens = {k: torch.as_tensor(v, device="cuda")   # device-resident batch
+              for k, v in synthetic_batch(cfg, batch, seed=0).items()}
     state = bundle.state
-    state, _ = bundle.step_fn(state, batch)         # warm-up step
+    state, _ = bundle.step_fn(state, tokens)         # warm-up step
     torch.cuda.synchronize()
-    log(f"[train] gpt2_124m B={TRAIN_BATCH} S={cfg.seq_len} remat=False; init "
+    log(f"[{tag}] {name} B={batch} S={cfg.seq_len} remat={cfg.remat}; init "
         f"and warm-up step {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    A.mha_forward_kernel.launches = 0
-    A.mha_backward_kernel.launches = 0
+    reset_launches()
     metrics, times = [], []
     for _ in range(TRAIN_STEPS):
         t = time.perf_counter()
-        state, m = bundle.step_fn(state, batch)
+        state, m = bundle.step_fn(state, tokens)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         metrics.append(m)
-    launches = {"flash_fwd": A.mha_forward_kernel.launches,
-                "flash_bwd": A.mha_backward_kernel.launches}
+    launches = launches_since_reset()
     peak = torch.cuda.max_memory_allocated()
 
     expected = cfg.n_layer * TRAIN_STEPS
-    log(f"[train] launches: {json.dumps(launches)} (expected {expected} each)")
+    log(f"[{tag}] launches: {json.dumps(launches)} (expected {expected} each)")
     if launches != {"flash_fwd": expected, "flash_bwd": expected}:
-        fail(f"training path launched {launches}, expected {expected} each")
+        fail(f"{name} training path launched {launches}, expected {expected} each")
     losses = [m["loss"].item() for m in metrics]
     norms = [m["grad_norm"].item() for m in metrics]
     if not all(map(math.isfinite, losses + norms)):
         fail(f"non-finite loss or grad norm: {losses} {norms}")
     if not losses[-1] < losses[0]:
         fail(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    tokens = TRAIN_BATCH * cfg.seq_len
     step_s = sorted(times)[len(times) // 2]
-    tokens_per_s = tokens / step_s
-    log("[train] " + json.dumps(dict(
-        card=card, batch=TRAIN_BATCH, seq_len=cfg.seq_len, steps=TRAIN_STEPS,
-        loss=losses, grad_norm=norms, step_ms=[t * 1e3 for t in times],
-        step_ms_median=step_s * 1e3, tokens_per_s=tokens_per_s,
-        peak_memory_bytes=peak, flops_per_token=gpt2.flops_per_token(cfg),
-        share_of_989_tflops=gpt2.flops_per_token(cfg) * tokens_per_s
+    tokens_per_s = batch * cfg.seq_len / step_s
+    log(f"[{tag}] " + json.dumps(dict(
+        card=card, model=name, batch=batch, seq_len=cfg.seq_len,
+        steps=TRAIN_STEPS, loss=losses, grad_norm=norms,
+        step_ms=[t * 1e3 for t in times], step_ms_median=step_s * 1e3,
+        tokens_per_s=tokens_per_s, peak_memory_bytes=peak,
+        flops_per_token=model.flops_per_token(cfg),
+        share_of_989_tflops=model.flops_per_token(cfg) * tokens_per_s
         / PEAK_BF16_FLOPS,
     )))
     if profile:
         def one_step():
-            bundle.step_fn(state, batch)
+            bundle.step_fn(state, tokens)
             torch.cuda.synchronize()
-        profile_device_time("one training step", one_step, top=16)
+        profile_device_time(f"one {name} training step", one_step, top=16)
 
-    # one batch's loss and gradients, flash kernels vs the plain path
-    small = synthetic_batch(cfg, COMPARE_BATCH, seed=1)
-    leaves = param_leaves(state["params"])
-    results = []
-    for impl_cfg in (cfg, replace(cfg, attention_impl="xla")):
-        loss = gpt2.loss_fn(state["params"], small["tokens"], small["targets"],
-                            impl_cfg)
-        results.append((loss.item(), torch.autograd.grad(loss, leaves)))
-    (lk, gk), (lp, gp) = results
-    by_leaf = {name: rel_err(a, b) for (name, _), a, b in
-               zip(named_leaves(state["params"]), gk, gp)}
-    worst = max(by_leaf, key=by_leaf.get)
-    log(f"[train] B{COMPARE_BATCH} loss flash {lk} vs plain {lp} (tol "
-        f"{LOSS_TOL}); gradient relative errors {json.dumps(by_leaf)}, worst "
-        f"{worst} {by_leaf[worst]} (tol {GRAD_PATH_REL_TOL})")
-    if not (abs(lk - lp) <= LOSS_TOL and by_leaf[worst] <= GRAD_PATH_REL_TOL):
-        fail("training-path loss or gradients disagree with the plain "
-             "attention path")
+    compare_gradients(tag, model, cfg, state["params"],
+                      synthetic_batch(cfg, compare_batch, seed=1), grad_tol)
     return launches
+
+
+def llama_hd128_gradients() -> None:
+    """The hd-128 backward inside a model: llama_7b at full width and
+    sequence, cut to LLAMA_GRAD_LAYERS layers, one sequence; loss and every
+    gradient, flash kernels against the plain attention path. The kernel
+    path launches each kernel once per layer, the plain path none."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.train_step import param_leaves, synthetic_batch
+
+    cfg = llama.llama_7b(n_layer=LLAMA_GRAD_LAYERS)
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    log(f"[llama-hd128] llama_7b cut to {cfg.n_layer} of 32 layers, full width "
+        f"(D={cfg.d_model} H={cfg.n_head} hd={cfg.head_dim}), S={cfg.seq_len}, "
+        f"B=1")
+    reset_launches()
+    compare_gradients("llama-hd128", llama, cfg, params,
+                      synthetic_batch(cfg, 1, seed=2), LLAMA_GRAD_PATH_REL_TOL)
+    launches = launches_since_reset()
+    expected = {"flash_fwd": cfg.n_layer, "flash_bwd": cfg.n_layer}
+    log(f"[llama-hd128] launches: {json.dumps(launches)} (expected "
+        f"{json.dumps(expected)})")
+    if launches != expected:
+        fail(f"hd-128 gradient check launched {launches}, expected {expected}")
 
 
 # --------------------------------------------------------------------------- #
@@ -862,8 +982,8 @@ def main() -> int:
                         help="also time flash_fwd built from SRC (same C "
                              "entry point) against the current one")
     parser.add_argument("--compare-bwd", metavar="SRC",
-                        help="also time flash_bwd built from SRC (the first "
-                             "design's C entry point) against the current one")
+                        help="also time flash_bwd built from SRC (same C "
+                             "entry point) against the current one")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -885,8 +1005,32 @@ def main() -> int:
     bwd = backward_cases(gen)
     if args.compare_bwd:
         compare_backward(args.compare_bwd, gen)
-    serve_launches = main_path(card, args.profile)
-    train_launches = train_path(card, args.profile)
+
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.train.train_step import (
+        make_gpt2_train_step, make_llama_train_step,
+    )
+
+    free_device_memory()
+    serve = serve_path(card, args.profile, "main", "gpt2_124m", gpt2,
+                       gpt2.gpt2_124m(), N_REQUESTS, REQUEST_BATCH,
+                       (LOGITS_MAX_TOL, LOGITS_MEAN_TOL))
+    free_device_memory()
+    train = train_path(card, args.profile, "train", "gpt2_124m", gpt2,
+                       make_gpt2_train_step, gpt2.gpt2_124m(remat=False),
+                       TRAIN_BATCH, COMPARE_BATCH, GRAD_PATH_REL_TOL)
+    free_device_memory()
+    llama_serve = serve_path(card, args.profile, "llama-serve", "llama_7b",
+                             llama, llama.llama_7b(), LLAMA_REQUESTS,
+                             LLAMA_REQUEST_BATCH,
+                             (LLAMA_LOGITS_MAX_TOL, LLAMA_LOGITS_MEAN_TOL))
+    free_device_memory()
+    llama_train = train_path(card, args.profile, "llama-train", "llama_1b",
+                             llama, make_llama_train_step,
+                             llama.llama_1b(remat=False), LLAMA_TRAIN_BATCH,
+                             LLAMA_COMPARE_BATCH, LLAMA_GRAD_PATH_REL_TOL)
+    free_device_memory()
+    llama_hd128_gradients()
 
     def numbers(row, launches):
         """One path's numbers for a kernel: its launches on that path beside
@@ -896,11 +1040,18 @@ def main() -> int:
                                        "bound_ms", "bound_by", "bound_share",
                                        "library_ms")}}
 
-    # top level: the training path (the newest main path) at its own shape;
-    # by_path: each main path at its own shape with its own launches
-    fwd_paths = {"train": numbers(bwd["fwd_main"], train_launches["flash_fwd"]),
-                 "serve": numbers(fwd["main"], serve_launches)}
-    bwd_paths = {"train": numbers(bwd["main"], train_launches["flash_bwd"])}
+    # top level: GPT-2's training path at its own shape; by_path: each main
+    # path at its own shape with its own launches
+    fwd_paths = {
+        "train": numbers(bwd["fwd_main"], train["flash_fwd"]),
+        "serve": numbers(fwd["main"], serve),
+        "llama_serve": numbers(fwd["llama_serve"], llama_serve),
+        "llama_train": numbers(bwd["fwd_llama_train"], llama_train["flash_fwd"]),
+    }
+    bwd_paths = {
+        "train": numbers(bwd["main"], train["flash_bwd"]),
+        "llama_train": numbers(bwd["llama_train"], llama_train["flash_bwd"]),
+    }
     log(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",

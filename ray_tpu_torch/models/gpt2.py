@@ -31,23 +31,18 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from functools import partial
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
-from torch.utils.checkpoint import (
-    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
-)
+from torch.utils.checkpoint import checkpoint
 
+from ray_tpu_torch.models.common import (  # params_from_jax: a JAX tree → torch
+    ParamsModule, layers, params_from_jax, plain_causal_attention, round_up,
+    run_block,
+)
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.cross_entropy import softmax_xent
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
 
 
 @dataclass(frozen=True)
@@ -116,7 +111,7 @@ class GPT2Config:
 
     @property
     def padded_vocab(self) -> int:
-        return _round_up(self.vocab_size, 128)
+        return round_up(self.vocab_size, 128)
 
 
 def gpt2_124m(**overrides) -> GPT2Config:
@@ -211,41 +206,12 @@ def param_count(cfg: GPT2Config) -> int:
     return sum(math.prod(s) for s in leaves)
 
 
-def _tensor_from_numpy(a, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16 has no torch twin in numpy
-        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
-    # copy: jax.device_get hands out read-only arrays
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
-
-
-def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """A JAX GPT-2 parameter tree (numpy arrays, or anything np.asarray
-    takes) → the same nested dict of torch tensors, names, shapes and dtypes
-    unchanged."""
-    return {
-        k: params_from_jax(v, device) if isinstance(v, dict)
-        else _tensor_from_numpy(v, device)
-        for k, v in tree.items()
-    }
-
-
-class GPT2(nn.Module):
+class GPT2(ParamsModule):
     """GPT-2 as an nn.Module over the JAX-layout parameters."""
 
     def __init__(self, cfg: GPT2Config, params: Dict[str, Any]):
-        super().__init__()
         _require_dense(cfg)
-        self.cfg = cfg
-        self.top = nn.ParameterDict(
-            {k: nn.Parameter(v) for k, v in params.items() if k != "blocks"}
-        )
-        self.blocks = nn.ParameterDict(
-            {k: nn.Parameter(v) for k, v in params["blocks"].items()}
-        )
-
-    def params(self) -> Dict[str, Any]:
-        return {**dict(self.top.items()), "blocks": dict(self.blocks.items())}
+        super().__init__(cfg, params)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self.params(), tokens, self.cfg)
@@ -274,14 +240,7 @@ def _attention(q, k, v, cfg: GPT2Config):
         )
     if impl in ("auto", "pallas"):
         return flash_attention(q, k, v, causal=True, layout="bhsd")
-    # "xla": the JAX model's plain einsum path, rounding where it rounds
-    S = q.shape[2]
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
-    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    return torch.matmul(probs, v)
+    return plain_causal_attention(q, k, v)
 
 
 def _block(x, p: Dict[str, torch.Tensor], cfg: GPT2Config):
@@ -302,27 +261,6 @@ def _block(x, p: Dict[str, torch.Tensor], cfg: GPT2Config):
     return x + h @ p["out_w"].to(dt) + p["out_b"].to(dt)
 
 
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
-         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
-            else CheckpointPolicy.PREFER_RECOMPUTE)
-
-
-def _run_block(x, p, cfg: GPT2Config):
-    """One block under the remat policy of cfg.remat."""
-    if not cfg.remat or not torch.is_grad_enabled():
-        return _block(x, p, cfg)
-    if cfg.remat == "dots":
-        return checkpoint(
-            _block, x, p, cfg, use_reentrant=False,
-            context_fn=partial(create_selective_checkpoint_contexts, _save_dots),
-        )
-    return checkpoint(_block, x, p, cfg, use_reentrant=False)
-
-
 def _trunk(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config):
     """tokens [B, S] int → final hidden states [B, S, D] (compute dtype)."""
     _require_dense(cfg)
@@ -331,12 +269,8 @@ def _trunk(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config):
     S = tokens.shape[1]
     dt = cfg.dtype
     x = wte.to(dt)[tokens] + params["wpe"][:S].to(dt)
-    # unbind: one view per layer, and one stack of the layers' gradients in
-    # the backward (indexing w[i] would add a zero-filled [L, ...] per layer)
-    blocks = params["blocks"]
-    layers = zip(*(w.unbind(0) for w in blocks.values()))
-    for layer in layers:
-        x = _run_block(x, dict(zip(blocks.keys(), layer)), cfg)
+    for layer in layers(params["blocks"]):
+        x = run_block(_block, cfg.remat, x, layer, cfg)
     return _layernorm(x, params["lnf_scale"], params["lnf_bias"])
 
 

@@ -15,13 +15,17 @@
 // exp(-1e30 - lse), which is 0 only for a finite lse), and a kv tile that no
 // q row sees gets dk = dv = 0.
 //
-// Rounding. The products take q and k as they are, and the scale is applied
-// to their f32 sums: to s before the exponential, to dk before its cast, to
-// dq in the cast kernel. With the scale rounded to bf16 (as the TPU kernel
-// folds it), this is exactly the TPU kernel's arithmetic when the scale is a
-// power of two (hd 64: 0.125). At hd 128 the TPU kernel rounds q * scale and
-// k * scale to bf16 before the products and this kernel does not, which moves
-// those operands by up to 2**-9 relative (the on-card error is in PERF.md).
+// Rounding: the TPU kernel's. qs = bf16(q * scale) and ks = bf16(k * scale),
+// with the scale rounded to bf16 as the TPU kernel folds it, are the operands
+// of s = qs . k^T, dk += ds^T . qs and dq += ds . ks, and no scale touches an
+// f32 sum (ROUND). The producer warpgroup's three idle warps make them in
+// shared memory: each landed q tile is scaled in place before the consumers
+// read it, and ks is written from the landed K tile into a tile of its own
+// once an item (the consumers have no registers to spare for it at hd 128).
+// Where the bf16 scale is a power of two (hd 64 at its default scale 0.125)
+// rounding q and k first changes nothing, and the kernel (ROUND false) takes
+// q and k as they are and applies the scale to the f32 sums instead: to s
+// before the exponential, to dk before its cast, to dq in the cast kernel.
 //
 // What bounds it. At B=24, H=12, S=1024, hd=64 causal (one GPT-2-124M layer
 // at the training batch) it reads q, k, v, o, do and lse and writes dq, dk
@@ -43,9 +47,11 @@
 //   item, then per 64-row q tile q, do (3-D maps [B*H, S, hd], so rows past S
 //   read zeros and never the next head's) and the tile's lse and delta rows
 //   (1-D bulk copies), into a ring of STAGES stages with full/empty
-//   mbarriers. Two consumer warpgroups (setmaxnreg.inc) own 64 kv rows each
-//   and hold dk and dv in f32 registers for the whole item. Per q tile,
-//   each consumer warpgroup:
+//   mbarriers; at ROUND its other three warps scale each landed q tile in
+//   place and write ks, and signal per stage (ready) and per item
+//   (ks_ready) that the consumers may read them. Two consumer warpgroups
+//   (setmaxnreg.inc) own 64 kv rows each and hold dk and dv in f32
+//   registers for the whole item. Per q tile, each consumer warpgroup:
 //     s^T = K . q^T and dp^T = V . do^T    wgmma, q and do K-major B
 //       operands; K and V are register A operands at hd 64 (read from the
 //       swizzled tile once an item), shared-memory ones at hd 128
@@ -54,12 +60,12 @@
 //       shared tile (double-buffered) that both warpgroups fill
 //     dv += p^T . do and dk += ds^T . q    RS wgmma, do and q MN-major
 //     dq_part = ds . K[:, its half of hd]  SS wgmma over all 128 kv rows, ds
-//       read MN-major from the shared tile, K MN-major
+//       read MN-major from the shared tile, K (ks at ROUND) MN-major
 //   and dq_part goes through a swizzled f32 staging tile to one TMA bulk
 //   reduce-add (cp.reduce.async.bulk.tensor, .add f32) per 32-column box
 //   into the f32 accumulator; the 3-D map drops rows past Sq. dk and dv
 //   leave once per item by TMA store from a swizzled staging tile.
-// - Epilogue: dq = accumulator * scale, cast to bf16.
+// - Epilogue: dq = accumulator (* scale unless ROUND), cast to bf16.
 // The bulk reduces of different blocks add in the order the blocks run, so
 // dq's bits vary from run to run (as the atomics of the design before did).
 // A warpgroup waits for each of its products, and the two warpgroups meet
@@ -67,9 +73,10 @@
 // (dq one step late, p computed under dp's product, double-buffered dq
 // staging, dq's cast folded into this kernel).
 //
-// Tiles. hd 64: 128-row kv tiles, 64-row q tiles, 4 stages. hd 128: the same
-// tiles and 3 stages (all the shared memory there is): dk and dv take 128 f32
-// registers a thread, s^T and dp^T 64.
+// Tiles. hd 64: 128-row kv tiles, 64-row q tiles, 4 stages. hd 128 (always
+// ROUND): the same tiles, 2 stages and the ks tile (all the shared memory
+// there is; 2 stages measured even with 3 on an H100, PERF.md): dk and dv
+// take 128 f32 registers a thread, s^T and dp^T 64.
 
 #include <math.h>
 
@@ -83,6 +90,7 @@ constexpr int NUM_CONSUMERS = 2;                 // consumer warpgroups
 constexpr int BLOCK_N = WG_ROWS * NUM_CONSUMERS; // kv rows per work item
 constexpr int NUM_THREADS = 128 * (1 + NUM_CONSUMERS);
 constexpr int CONSUMER_WARPS = 4 * NUM_CONSUMERS;
+constexpr int SCALERS = 96;                      // the producer warpgroup's warps 1 to 3
 constexpr int LAUNCH_REGS = 168;                 // 65536 / 384, down to a multiple of 8
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
@@ -96,9 +104,10 @@ constexpr int ROW_PAD = BLOCK_M;                 // row buffers padded to whole 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MAX_SMEM = 232448;                 // a block's limit on sm_90
 
-template <int HD>
+template <int HD, bool ROUND>
 struct Cfg {
-  static constexpr int STAGES = HD == 64 ? 4 : 3;
+  // hd 128 always rounds, and its ks tile takes a third stage's room
+  static constexpr int STAGES = HD == 64 ? 4 : 2;
   // hd 64: K and V as register A operands of s^T and dp^T (32 registers),
   // read from shared memory once an item; hd 128 has no registers to spare
   static constexpr bool KV_IN_REGS = HD == 64;
@@ -114,14 +123,17 @@ struct Cfg {
   static constexpr int OUT_BOX_BYTES = WG_ROWS * 128;          // 64 kv rows x 64 bf16
   static constexpr int OUT_WG_BYTES = 2 * BOXES * OUT_BOX_BYTES;  // dk then dv
   static constexpr int V_OFF = KV_TILE_BYTES;
-  static constexpr int STAGE_OFF = 2 * KV_TILE_BYTES;
+  static constexpr int KS_OFF = 2 * KV_TILE_BYTES;                // bf16(k * scale), ROUND
+  static constexpr int STAGE_OFF = KS_OFF + (ROUND ? KV_TILE_BYTES : 0);
   static constexpr int DS_OFF = STAGE_OFF + STAGES * STAGE_BYTES;
   static constexpr int DQ_OFF = DS_OFF + 2 * DS_BYTES;
   // dk and dv's staging at the end of an item reuses ds^T's and dq's
   static constexpr int OUT_OFF = DS_OFF;
   static constexpr int ROWS_OFF = DQ_OFF + DQ_BYTES;           // lse, delta per stage
   static constexpr int BAR_OFF = ROWS_OFF + STAGES * 2 * ROW_BYTES;
-  static constexpr int SMEM = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;
+  // kv full/empty, full/empty per stage; at ROUND also ks_ready and ready per stage
+  static constexpr int N_BARS = 2 + 2 * STAGES + (ROUND ? 1 + STAGES : 0);
+  static constexpr int SMEM = BAR_OFF + 8 * N_BARS + 1024;
   static_assert(NUM_CONSUMERS * OUT_WG_BYTES <= 2 * DS_BYTES + DQ_BYTES, "dk/dv staging");
   static_assert(SMEM <= MAX_SMEM, "shared memory");
 };
@@ -172,6 +184,26 @@ __device__ __forceinline__ void pin_frags(uint32_t (&a)[K][4]) {
   for (int k = 0; k < K; ++k)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// dst = bf16(src * scale), BYTES of bf16 in shared memory (dst may be src),
+// over the SCALERS threads (sid 0 .. SCALERS - 1); element by element, so any
+// swizzle is kept
+template <int BYTES>
+__device__ __forceinline__ void scale_bf16(const unsigned char* src, unsigned char* dst, int sid,
+                                           float scale) {
+#pragma unroll 1
+  for (int i = sid * 16; i < BYTES; i += SCALERS * 16) {
+    const uint4 x = *reinterpret_cast<const uint4*>(src + i);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+    uint32_t y[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      y[e] = pack_bf16(f.x * scale, f.y * scale);
+    }
+    *reinterpret_cast<uint4*>(dst + i) = make_uint4(y[0], y[1], y[2], y[3]);
+  }
 }
 
 // d (+)= A . B with both operands in shared memory by descriptor (TRANS_A,
@@ -245,7 +277,7 @@ __device__ __forceinline__ int first_q_tile(int kv_start, const Problem& p) {
   return row <= 0 ? 0 : row >= p.Sq ? p.n_qt : (int)(row / BLOCK_M);
 }
 
-template <int HD>
+template <int HD, bool ROUND>
 __global__ void __launch_bounds__(NUM_THREADS, 1)
 flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
@@ -256,7 +288,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_dq,  // f32 accumulator
                  const float* __restrict__ rows,  // lse * log2(e), then delta
                  const Problem p, float scale) {
-  using C = Cfg<HD>;
+  using C = Cfg<HD, ROUND>;
   constexpr int STAGES = C::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -270,6 +302,8 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bars = base + C::BAR_OFF;
   const uint32_t kv_full = bars, kv_empty = bars + 8;
   const uint32_t full0 = bars + 16, empty0 = bars + 16 + 8 * STAGES;  // + 8 * stage
+  // ROUND: ks written once an item, and stage s's q tile scaled
+  const uint32_t ks_ready = bars + 16 + 16 * STAGES, ready0 = ks_ready + 8;  // + 8 * stage
 
   const int tid = threadIdx.x;
   const int n_work = p.n_kt * p.BH;
@@ -279,7 +313,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, CONSUMER_WARPS);
+      if (ROUND) mbar_init(ready0 + 8 * s, SCALERS);
     }
+    if (ROUND) mbar_init(ks_ready, SCALERS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -322,6 +358,31 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           bulk_load(rs + ROW_BYTES, delta_row + j * BLOCK_M, ROW_BYTES, full);
         }
       }
+    } else if (ROUND && tid >= 32) {
+      // warps 1 to 3: ks = bf16(k * scale) once K lands, then each landed q
+      // tile scaled in place, in the producer's order. A ks is rewritten only
+      // after the next item's K landed, which the producer loads only after
+      // the consumers are done with this item's K (kv_empty).
+      const int sid = tid - 32;
+      const float scale_bf = __bfloat162float(__float2bfloat16(scale));
+      unsigned char* sm = smem_raw + (base - raw);
+      int it = 0;
+      for (int n = 0, w; (w = nth_item(n, n_work)) >= 0; ++n) {
+        int kt, bh;
+        work_item(w, p, kt, bh);
+        mbar_wait(kv_full, n & 1);
+        scale_bf16<C::KV_TILE_BYTES>(sm, sm + C::KS_OFF, sid, scale_bf);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma
+        mbar_arrive(ks_ready);
+        for (int j = first_q_tile(kt * BLOCK_N, p); j < p.n_qt; ++j, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+          unsigned char* q_tile = sm + C::STAGE_OFF + s * C::STAGE_BYTES;
+          scale_bf16<C::Q_TILE_BYTES>(q_tile, q_tile, sid, scale_bf);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma
+          mbar_arrive(ready0 + 8 * s);
+        }
+      }
     }
   } else {
     // ---- consumer warpgroups: 64 kv rows each ----
@@ -331,10 +392,14 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int g = lane >> 2, t = lane & 3;  // accumulator row group, column pair
     const int r0 = warp * 16 + g;           // this thread's kv rows in the warpgroup: r0, r0 + 8
     const float scale_bf = __bfloat162float(__float2bfloat16(scale));
-    const float scale_log2 = scale_bf * LOG2E;
+    // ROUND: qs carries the scale into s and dk, ks into dq
+    const float scale_log2 = ROUND ? LOG2E : scale_bf * LOG2E;
+    const float dk_scale = ROUND ? 1.f : scale_bf;
     const uint32_t kw = sk + cw * WG_ROWS * 128, vw = sv + cw * WG_ROWS * 128;  // its K, V rows
-    // its half of dq's columns: in K (MN-major B of dq = ds . K) and in staging
-    const uint32_t k_half = sk + (HD == 64 ? cw * 64 : cw * C::KV_BOX_BYTES);
+    // its half of dq's columns: in K, or ks at ROUND (MN-major B of dq = ds . K),
+    // and in staging
+    const uint32_t k_half =
+        base + (ROUND ? C::KS_OFF : 0) + (HD == 64 ? cw * 64 : cw * C::KV_BOX_BYTES);
     const uint32_t dq_stage = sdq + cw * (HD / 64) * C::DQ_BOX_BYTES;
     const uint32_t out_dk = base + C::OUT_OFF + cw * C::OUT_WG_BYTES;
     const uint32_t out_dv = out_dk + C::BOXES * C::OUT_BOX_BYTES;
@@ -371,6 +436,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int s = it % STAGES, q_start = j * BLOCK_M;
         const uint32_t qs = stage0 + s * C::STAGE_BYTES, dos = qs + C::Q_TILE_BYTES;
         mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+        if (ROUND) mbar_wait(ready0 + 8 * s, (it / STAGES) & 1);  // q scaled in place
 
         // s^T = K . q^T and dp^T = V . do^T: a 16-column step moves 32 bytes
         // along the swizzled rows, and at hd 128 columns 64.. are the second box
@@ -477,8 +543,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         if (lane == 0) mbar_arrive(empty0 + 8 * s);
 
-        // dq_part = ds . K[:, this warpgroup's half]: ds^T's rows are the
-        // contraction (a 16-row step is 2048 bytes in both operands)
+        // dq_part = ds . K[:, this warpgroup's half] (ks at ROUND): ds^T's
+        // rows are the contraction (a 16-row step is 2048 bytes in both)
+        if (ROUND) mbar_wait(ks_ready, n & 1);
         float dq[HD / 4];
         pin(dq);
         wgmma_fence();
@@ -519,9 +586,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       if (lane == 0) mbar_arrive(kv_empty);
 
-      // epilogue: dk * scale and dv in bf16 through a swizzled staging tile
-      // per warpgroup (over ds^T's and dq's) and one TMA store a 64-column
-      // box, which drops kv rows past Skv
+      // epilogue: dk (* scale unless ROUND) and dv in bf16 through a swizzled
+      // staging tile per warpgroup (over ds^T's and dq's) and one TMA store a
+      // 64-column box, which drops kv rows past Skv
       if (tid % 128 == 0) bulk_wait_read();  // the reduces have read dq's staging
       consumer_sync();                       // and both warpgroups are done with ds^T
       {
@@ -529,9 +596,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int dt = 0; dt < HD / 8; ++dt) {
           const uint32_t a = row_o + (dt / 8) * C::OUT_BOX_BYTES + (((dt % 8) << 4) ^ swz);
-          st_shared_u32(out_dk + a, pack_bf16(dk[dt * 4] * scale_bf, dk[dt * 4 + 1] * scale_bf));
+          st_shared_u32(out_dk + a, pack_bf16(dk[dt * 4] * dk_scale, dk[dt * 4 + 1] * dk_scale));
           st_shared_u32(out_dk + a + 8 * 128,
-                        pack_bf16(dk[dt * 4 + 2] * scale_bf, dk[dt * 4 + 3] * scale_bf));
+                        pack_bf16(dk[dt * 4 + 2] * dk_scale, dk[dt * 4 + 3] * dk_scale));
           st_shared_u32(out_dv + a, pack_bf16(dv[dt * 4], dv[dt * 4 + 1]));
           st_shared_u32(out_dv + a + 8 * 128, pack_bf16(dv[dt * 4 + 2], dv[dt * 4 + 3]));
         }
@@ -596,7 +663,7 @@ flash_bwd_prologue_kernel(const __nv_bfloat16* __restrict__ o,
   }
 }
 
-// dq = accumulator * scale in bf16, 8 values a thread
+// dq = accumulator * scale in bf16, 8 values a thread (scale 1 at ROUND)
 __global__ void __launch_bounds__(256)
 flash_bwd_dq_cast_kernel(const float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dq,
                          long long n8, float scale) {
@@ -614,18 +681,29 @@ flash_bwd_dq_cast_kernel(const float* __restrict__ dq_acc, __nv_bfloat16* __rest
 
 int padded_rows(int Sq) { return (Sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD; }
 
+float bf16_scale(float scale) { return __bfloat162float(__float2bfloat16(scale)); }
+
+// Whether a call rounds q * scale and k * scale to bf16 before its products
+// (ROUND): always at hd 128, and at hd 64 unless the bf16 scale is a power of
+// two, where the rounding is exact and the kernel scales the f32 sums instead.
+bool rounds(int hd, float scale) {
+  int e = 0;
+  const float s = bf16_scale(scale);
+  return hd != 64 || !(s > 0.f && frexpf(s, &e) == 0.5f);
+}
+
 // blocks for a grid-stride loop over `n` items of 256-thread blocks
 int stride_blocks(long long n, int sms) {
   const long long want = (n + 255) / 256, most = 16LL * sms;
   return (int)(want < most ? want : most);
 }
 
-template <int HD>
+template <int HD, bool ROUND>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const void* lse, void* dq, void* dk, void* dv,
                    void* scratch, int B, int H, int Sq, int Skv, int q_off, int kv_off,
                    float scale, int causal, cudaStream_t stream) {
-  using C = Cfg<HD>;
+  using C = Cfg<HD, ROUND>;
   if (encoder() == nullptr) return cudaErrorSymbolNotFound;
   const int BH = B * H, sq_pad = padded_rows(Sq);
   float* dq_acc = static_cast<float*>(scratch);
@@ -645,7 +723,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   if (device >= 64) return cudaErrorInvalidDevice;
   if (sm_count[device] == 0) {
     int sms = 0;
-    if ((err = cudaFuncSetAttribute(flash_bwd_kernel<HD>,
+    if ((err = cudaFuncSetAttribute(flash_bwd_kernel<HD, ROUND>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM)) !=
             cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
@@ -654,6 +732,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     sm_count[device] = sms;
   }
   const int sms = sm_count[device];
+  const float scale_bf = bf16_scale(scale);
   const long long n_rows = (long long)BH * sq_pad;
   flash_bwd_prologue_kernel<HD><<<stride_blocks(n_rows * (HD / 8), sms), 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
@@ -662,12 +741,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const Problem p{BH, Sq, Skv, q_off, kv_off, causal, (Sq + BLOCK_M - 1) / BLOCK_M,
                   (Skv + BLOCK_N - 1) / BLOCK_N, sq_pad};
   const int work = p.n_kt * p.BH;
-  flash_bwd_kernel<HD><<<work < sms ? work : sms, NUM_THREADS, C::SMEM, stream>>>(
+  flash_bwd_kernel<HD, ROUND><<<work < sms ? work : sms, NUM_THREADS, C::SMEM, stream>>>(
       tq, tk, tv, tdo, tdk, tdv, tdq, rows, p, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long n8 = (long long)BH * Sq * HD / 8;
   flash_bwd_dq_cast_kernel<<<stride_blocks(n8, sms), 256, 0, stream>>>(
-      dq_acc, static_cast<__nv_bfloat16*>(dq), n8, __bfloat162float(__float2bfloat16(scale)));
+      dq_acc, static_cast<__nv_bfloat16*>(dq), n8, ROUND ? 1.f : scale_bf);
   return cudaGetLastError();
 }
 
@@ -675,10 +754,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 
 // q, k, v, o, dout, dq, dk, dv: contiguous bf16 [B, H, S, hd], 16-byte
 // aligned; lse: f32 [B, H, Sq]; scratch: 16-byte aligned, at least
-// flash_bwd_scratch_bytes(B * H, Sq, hd) bytes (dq's f32 accumulator, then the
-// lse and delta rows). Launches the prologue, the main kernel and dq's cast
-// on `stream`; returns the first launch error (0 on success), or an error
-// code if the tensor maps cannot be made.
+// flash_bwd_scratch_bytes(B * H, Sq, hd) bytes (dq's f32 accumulator, then
+// the lse and delta rows). Launches the prologue, the main kernel and dq's
+// cast on `stream`; returns the first launch error (0 on success), or an
+// error code if the tensor maps cannot be made.
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const void* lse, void* dq, void* dk, void* dv,
                               void* scratch, int B, int H, int Sq, int Skv, int hd, int q_off,
@@ -686,11 +765,14 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
-      return launch<64>(q, k, v, o, dout, lse, dq, dk, dv, scratch, B, H, Sq, Skv, q_off,
-                        kv_off, scale, causal, s);
+      return rounds(64, scale)
+                 ? launch<64, true>(q, k, v, o, dout, lse, dq, dk, dv, scratch, B, H, Sq, Skv,
+                                    q_off, kv_off, scale, causal, s)
+                 : launch<64, false>(q, k, v, o, dout, lse, dq, dk, dv, scratch, B, H, Sq, Skv,
+                                     q_off, kv_off, scale, causal, s);
     case 128:
-      return launch<128>(q, k, v, o, dout, lse, dq, dk, dv, scratch, B, H, Sq, Skv, q_off,
-                         kv_off, scale, causal, s);
+      return launch<128, true>(q, k, v, o, dout, lse, dq, dk, dv, scratch, B, H, Sq, Skv, q_off,
+                               kv_off, scale, causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -701,8 +783,10 @@ extern "C" long long flash_bwd_scratch_bytes(int BH, int Sq, int hd) {
   return 4LL * BH * ((long long)Sq * hd + 2LL * padded_rows(Sq));
 }
 
-// Dynamic shared memory the main kernel requests at head dim hd, in bytes
-// (0 for an hd it does not take).
-extern "C" int flash_bwd_smem_bytes(int hd) {
-  return hd == 64 ? Cfg<64>::SMEM : hd == 128 ? Cfg<128>::SMEM : 0;
+// Dynamic shared memory the main kernel requests at head dim hd, rounding
+// (round != 0) or not, in bytes (0 for a kernel that is not built).
+extern "C" int flash_bwd_smem_bytes(int hd, int round) {
+  return hd == 64 ? (round ? Cfg<64, true>::SMEM : Cfg<64, false>::SMEM)
+         : hd == 128 && round ? Cfg<128, true>::SMEM
+                              : 0;
 }

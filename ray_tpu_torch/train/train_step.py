@@ -1,7 +1,7 @@
 """Training step of the PyTorch port, on one device.
 
 Counterpart of ray_tpu/train/train_step.py: `default_optimizer`,
-`make_gpt2_train_step` and `synthetic_batch`. The JAX step is one jitted
+`make_gpt2_train_step`, `make_llama_train_step` and `synthetic_batch`. The JAX step is one jitted
 function over a mesh with donated buffers; here the step runs eagerly on
 one device and updates the parameters and the optimizer's moments in place.
 Meshes and shardings come with the multi-GPU slice.
@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tupl
 import numpy as np
 import torch
 
-from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.models import gpt2, llama
 
 _f32 = np.float32
 
@@ -152,14 +152,10 @@ def param_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
     return [v for _, v in named_leaves(params)]
 
 
-def make_gpt2_train_step(
-    cfg: gpt2.GPT2Config,
-    optimizer: Optional[Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]] = None,
-    generator: Optional[torch.Generator] = None,
-    device="cuda",
-) -> TrainStepBundle:
-    """Initialize GPT-2 on `device` and build its train step: forward,
-    backward (the flash kernels on a CUDA device), then the optimizer.
+def _make_train_step(model, cfg, optimizer, generator, device) -> TrainStepBundle:
+    """Initialize `model` (a module with `init` and `loss_fn`, e.g.
+    models.gpt2) on `device` and build its train step: forward, backward
+    (the flash kernels on a CUDA device), then the optimizer.
 
     `optimizer` is a factory such as `default_optimizer()` returns (the
     default). `step_fn(state, batch)` updates state["params"] and the
@@ -170,7 +166,7 @@ def make_gpt2_train_step(
         optimizer = default_optimizer()
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    params = gpt2.init(cfg, generator, device=device)
+    params = model.init(cfg, generator, device=device)
     for p in param_leaves(params):
         p.requires_grad_(True)
     state = {"params": params, "opt_state": optimizer(param_leaves(params)),
@@ -179,7 +175,7 @@ def make_gpt2_train_step(
     def step_fn(state, batch):
         opt = state["opt_state"]
         opt.zero_grad(set_to_none=True)
-        loss = gpt2.loss_fn(
+        loss = model.loss_fn(
             state["params"], torch.as_tensor(batch["tokens"], device=device),
             torch.as_tensor(batch["targets"], device=device), cfg,
         )
@@ -197,6 +193,31 @@ def make_gpt2_train_step(
 
     return TrainStepBundle(state=state, step_fn=step_fn, cfg=cfg,
                            multi_step_fn=multi_step_fn)
+
+
+OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
+
+
+def make_gpt2_train_step(
+    cfg: gpt2.GPT2Config,
+    optimizer: Optional[OptimizerFactory] = None,
+    generator: Optional[torch.Generator] = None,
+    device="cuda",
+) -> TrainStepBundle:
+    """GPT-2 (models.gpt2) on `device` and its train step; see
+    `_make_train_step`."""
+    return _make_train_step(gpt2, cfg, optimizer, generator, device)
+
+
+def make_llama_train_step(
+    cfg: llama.LlamaConfig,
+    optimizer: Optional[OptimizerFactory] = None,
+    generator: Optional[torch.Generator] = None,
+    device="cuda",
+) -> TrainStepBundle:
+    """Llama (models.llama) on `device` and its train step; see
+    `_make_train_step`."""
+    return _make_train_step(llama, cfg, optimizer, generator, device)
 
 
 def synthetic_batch(cfg, global_batch: int, seed: int = 0):

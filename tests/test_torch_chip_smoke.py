@@ -1,12 +1,15 @@
 """The checks of chip_smoke.py that run on the CPU too.
 
-chip_smoke.py holds the backward kernel against `backward_scale_on_sums`,
-the plain version with the kernel's rounding points, by mean error
-(`MEAN_REL_TOL`). These tests show that this reference is the plain
-version itself where the scale is a power of two (hd 64), and that at
-hd 128, where the plain version rounds q * scale and k * scale to bf16
-first, the check tells the two apart. They also drive the reader of the
-SASS's highest register on cuobjdump-like text.
+chip_smoke.py holds the backward kernel against `mha_backward_plain`, which
+rounds as the TPU kernel does, by mean error over mean magnitude
+(`MEAN_REL_TOL`). `scale_on_sums` below is another rounding: the scale,
+rounded to bf16, applied to the f32 sums q.k^T, ds^T.q and ds.k instead of
+to q and k before the products: the rounding of a kernel that takes q and
+k unscaled into its products. These tests show that the check accepts
+it where the scale is a power of two (hd 64, where it is the plain version
+itself) and rejects it at hd 128, where the max-error check alone
+(`GRAD_REL_TOL`) lets it pass. They also drive the reader of the SASS's
+highest register on cuobjdump-like text.
 """
 
 import importlib.util
@@ -32,6 +35,26 @@ def smoke():
     return module
 
 
+def scale_on_sums(q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True):
+    """mha_backward_plain with the scale, rounded to bf16, multiplying the
+    f32 sums q.k^T, ds^T.q and ds.k rather than q and k before the
+    products."""
+    Sq, Skv, hd = q.shape[2], k.shape[2], q.shape[3]
+    sc = float(torch.tensor(hd ** -0.5, dtype=torch.bfloat16))
+    qf, kf, dof = q.float(), k.float(), do.float()
+    p = torch.exp(qf @ kf.transpose(-1, -2) * sc - lse[..., None])
+    if causal:
+        rows = q_off + torch.arange(Sq)[:, None]
+        cols = kv_off + torch.arange(Skv)[None, :]
+        p = p.masked_fill(rows < cols, 0.0)
+    dv = p.to(do.dtype).float().transpose(-1, -2) @ dof
+    dp = dof @ v.float().transpose(-1, -2)
+    ds = (p * (dp - tattn._delta(o, do)[..., None])).to(q.dtype).float()
+    dk = ds.transpose(-1, -2) @ qf * sc
+    dq = ds @ kf * sc
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def backward_inputs(seed, hd, B=1, H=2, S=256):
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, S, hd), dtype=np.float32))
@@ -46,16 +69,17 @@ def backward_inputs(seed, hd, B=1, H=2, S=256):
 def test_scale_on_sums_is_the_plain_backward_at_hd64(smoke, causal, offsets):
     q, k, v, o, lse, do = backward_inputs(0, 64)
     args = (q, k, v, o, lse, do, *offsets)
-    model = smoke.backward_scale_on_sums(*args, causal=causal)
+    model = scale_on_sums(*args, causal=causal)
     plain = tattn.mha_backward_plain(*args, causal=causal)
     for a, b in zip(model, plain):
         assert torch.equal(a, b)
+        assert smoke.mean_rel_err(a, b) <= smoke.MEAN_REL_TOL
 
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_mean_error_check_separates_the_rounding_points_at_hd128(smoke, causal):
     q, k, v, o, lse, do = backward_inputs(1, 128)
-    model = smoke.backward_scale_on_sums(q, k, v, o, lse, do, causal=causal)
+    model = scale_on_sums(q, k, v, o, lse, do, causal=causal)
     plain = tattn.mha_backward_plain(q, k, v, o, lse, do, causal=causal)
     for name, a, b in zip(("dq", "dk", "dv"), model, plain):
         err = smoke.mean_rel_err(a, b)
