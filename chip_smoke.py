@@ -54,9 +54,26 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
 7. The hd-128 backward inside a model: llama_7b at full width and S 4096,
    cut to 2 layers, one sequence; loss and every gradient, flash kernels
    against the plain attention path.
+8. [moe] The MoE layer at GPT-2-124M's width (D 768, F 3072, E 8, top-2,
+   8 x 1024 tokens), bf16 and f32, capacity factors 1.25 and 0.5 (drops):
+   `moe_mlp` (index dispatch, the model path's) against `moe_mlp_plain`
+   (the reference's dense einsums): identical routing, y, aux and every
+   gradient within the stated tolerances, two calls bitwise equal; both
+   timed, forward and forward + backward.
+9. [moe-serve] gpt2_124m(moe_experts=8) at full width and depth (521 M
+   params), as phase 3: 12 flash_fwd launches a request. The logits are
+   checked against the plain attention path within limits measured on the
+   card, and the routing decisions that differ between the two paths
+   (discrete choices that bf16 noise can flip) are counted and bounded.
+10. [moe-train] The same model as phase 4 at B 24 x 1024: 12 launches of
+   each kernel a step, finite and falling loss; the share of 989 TFLOP/s
+   from the work the card executes (E x C capacity slots per T tokens)
+   printed beside the JAX formula's (which counts every expert for every
+   token); gradients of one B 8 batch against the plain attention path,
+   with the differing routing decisions counted.
    Each model path starts with the device memory the last one used freed,
    so that the peak memory it prints is its own.
-8. Print the kernels line (each kernel's numbers by model path), the card's
+11. Print the kernels line (each kernel's numbers by model path), the card's
    name and power limit, and last the result line {"ok": true, ...}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -137,6 +154,47 @@ GRAD_PATH_REL_TOL = 2e-2
 LLAMA_LOGITS_MAX_TOL = 1.5
 LLAMA_LOGITS_MEAN_TOL = 0.15
 LLAMA_GRAD_PATH_REL_TOL = 0.1
+
+# the MoE paths against their plain attention path. Routing is discrete:
+# bf16 noise between the two attention paths sends a near-tie choice to
+# another expert, which moves that token's output by O(1), shifts the
+# queue places (so the drops) of later tokens of that expert, and reaches
+# later tokens through attention and later layers through the residual.
+# Measured on an H100 (gpt2_124m(moe_experts=8), 12 layers; four runs):
+# serving 8 x 1024 tokens, 35 of 16,384 decisions differ between the two
+# paths in the first layer (0.21 %) and 4.8 % over all layers, and each
+# path differs from attention computed in f32 as much as from the other
+# (kernel 5.3 %, plain 5.0 %); in the B 8 gradient check after 8 training
+# steps, 0.21-0.26 % in the first layer and 0.74-1.34 % in all (the
+# trained state differs from run to run: flash_bwd sums dq in a
+# run-dependent order). A kernel defect moves most decisions, the first
+# layer's most of all. The free-running serving logits then differ by up
+# to their own size at the tokens routed otherwise (max 3.41 with
+# |logits| up to 3.52; mean 0.047, while kernel and plain are 0.052 and
+# 0.048 from the f32 path), the B 8 loss by 1.2e-5 to 1.7e-4 and the
+# worst gradient by 0.031 to 0.067 (kernel 0.037-0.061 and plain
+# 0.033-0.048 from the f32 path). The limits below are about twice
+# those. The tight check is the plain path run on the kernel path's
+# routing, held to the dense GPT-2 limits (measured: logits 0.047 max,
+# 0.0057 mean; worst gradient 0.0051-0.0087).
+MOE_FIRST_LAYER_FLIP_SHARE_TOL = 0.01
+MOE_FLIP_SHARE_TOL = 0.1
+MOE_LOGITS_MAX_TOL = 7.0
+MOE_LOGITS_MEAN_TOL = 0.1
+MOE_LOSS_TOL = LOSS_TOL
+MOE_GRAD_PATH_REL_TOL = 0.15
+# moe_mlp against moe_mlp_plain on the same inputs, relative to the plain
+# version's max-abs: both dispatch exact copies of the tokens and run the
+# same expert products; the combine sums a token's k (= 2) products in f32
+# in both, so y may differ by one bf16 step at most (2**-8); gradients
+# reach the router through the gate's gradient, rounded to bf16 after
+# products summed in other orders (GRAD_REL_TOL, as the kernels'); f32
+# differs only by summation order. aux: the same f32 formula on the same
+# routing (1e-6 relative).
+MOE_Y_REL_TOL = {torch.bfloat16: 2 ** -8, torch.float32: 1e-5}
+MOE_GRAD_REL_TOL = {torch.bfloat16: GRAD_REL_TOL, torch.float32: 1e-5}
+MOE_AUX_REL_TOL = 1e-6
+MOE_EXPERTS = 8
 
 N_REQUESTS, REQUEST_BATCH = 4, 8
 TRAIN_BATCH, TRAIN_STEPS, COMPARE_BATCH = 24, 8, 8
@@ -697,6 +755,235 @@ def f32_attention(model):
         model._attention = kept
 
 
+def is_moe(cfg) -> bool:
+    return getattr(cfg, "moe_experts", 0) > 0
+
+
+@contextmanager
+def recorded_routing(model, sink: list):
+    """Within the block, each call of `model`'s MoE layer (models.gpt2)
+    appends its routing (an ops.moe.Routing, by ops.moe.route on the
+    layer's own inputs) to `sink`; the layer runs unchanged."""
+    from ray_tpu_torch.ops import moe
+
+    layer = model.moe_mlp
+
+    def recording(x, params, *, top_k, capacity_factor, dtype):
+        T = x.shape[0] * x.shape[1]
+        C = moe.moe_capacity(T, params["router_w"].shape[-1], top_k,
+                             capacity_factor)
+        with torch.no_grad():
+            sink.append(moe.route(x.detach().reshape(T, -1),
+                                  params["router_w"].detach(), top_k, C))
+        return layer(x, params, top_k=top_k, capacity_factor=capacity_factor,
+                     dtype=dtype)
+
+    model.moe_mlp = recording
+    try:
+        yield
+    finally:
+        model.moe_mlp = layer
+
+
+@contextmanager
+def routing_of(model, cfg, routing: dict, path):
+    """recorded_routing into routing[path] for an MoE configuration and a
+    named path, nothing otherwise."""
+    if not is_moe(cfg) or path is None:
+        yield
+        return
+    with recorded_routing(model, routing[path]):
+        yield
+
+
+@contextmanager
+def forced_routing(recorded: list):
+    """Within the block, the MoE layers of successive calls take their
+    discrete decisions (expert, queue place, kept) from `recorded`, a run's
+    routing in layer order, instead of from their own router; probabilities
+    and gates are still computed from the layer's inputs, so gradients
+    flow as usual. Two attention paths compared on one routing differ by
+    their attention alone."""
+    from ray_tpu_torch.ops import moe
+
+    own, decisions = moe.route, iter(recorded)
+
+    def route(xt, router_w, top_k, capacity):
+        r = next(decisions)
+        probs = moe.router_probs(xt, router_w)
+        gate = moe._renormalise(probs.gather(1, r.expert))
+        return moe.Routing(probs, gate, r.expert, r.pos, r.keep)
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = own
+
+
+def routing_flips(a: list, b: list) -> dict:
+    """The (token, choice) routing decisions of two runs of one MoE model
+    (per layer, routings with .expert and .keep [T, k], as recorded_routing
+    gives them) that differ: in the expert chosen, and in whether the
+    choice was kept or dropped; in all and layer by layer."""
+    if len(a) != len(b) or not a:
+        fail(f"routing recorded for {len(a)} and {len(b)} layers")
+    experts = [int((ra.expert != rb.expert).sum()) for ra, rb in zip(a, b)]
+    drops = [int((ra.keep != rb.keep).sum()) for ra, rb in zip(a, b)]
+    return {
+        "decisions": sum(r.expert.numel() for r in a),
+        "expert_differs": sum(experts), "drop_differs": sum(drops),
+        "expert_differs_by_layer": experts, "drop_differs_by_layer": drops,
+        "dropped": sum(int((~r.keep).sum()) for r in a),
+    }
+
+
+def report_routing(tag: str, routing: dict) -> dict:
+    """Print the routing decisions that differ between the kernel, plain
+    and f32-attention paths; returns those between kernel and plain."""
+    for path in ("kernel", "plain"):
+        log(f"[{tag}] routing, {path} path vs attention in f32: "
+            f"{json.dumps(routing_flips(routing[path], routing['f32']))}")
+    flips = routing_flips(routing["kernel"], routing["plain"])
+    log(f"[{tag}] routing, kernel path vs plain path: {json.dumps(flips)}")
+    return flips
+
+
+def check_flips(tag: str, flips: dict) -> None:
+    share = max(flips["expert_differs"], flips["drop_differs"]) / flips["decisions"]
+    per_layer = flips["decisions"] / len(flips["expert_differs_by_layer"])
+    first = max(flips["expert_differs_by_layer"][0],
+                flips["drop_differs_by_layer"][0]) / per_layer
+    log(f"[{tag}] share of routing decisions that differ between the kernel "
+        f"and plain paths: {share} (tol {MOE_FLIP_SHARE_TOL}), first layer "
+        f"{first} (tol {MOE_FIRST_LAYER_FLIP_SHARE_TOL})")
+    if not (share <= MOE_FLIP_SHARE_TOL
+            and first <= MOE_FIRST_LAYER_FLIP_SHARE_TOL):
+        fail(f"{tag}: the MoE routing of the kernel and plain paths differs "
+             f"in {share} of its decisions, {first} in the first layer")
+
+
+def executed_flops_per_token(model, cfg, num_tokens: int) -> float:
+    """Training FLOPs per token that the card executes: 6 per parameter a
+    token's work runs through, plus the attention term, as
+    model.flops_per_token counts them, except that an MoE layer runs its
+    E x C capacity slots per T tokens, filled or empty (about k x the
+    capacity factor experts a token), where flops_per_token (the JAX
+    formula) counts all E experts for every token."""
+    if not is_moe(cfg):
+        return model.flops_per_token(cfg)
+    from ray_tpu_torch.ops import moe
+
+    n = model.param_count(cfg)
+    attention = model.flops_per_token(cfg) - 6.0 * n
+    E, D, F_ = cfg.moe_experts, cfg.d_model, cfg.d_ff
+    one_expert = cfg.n_layer * (2 * D * F_ + F_ + D)   # fc and out, all layers
+    C = moe.moe_capacity(num_tokens, E, cfg.moe_top_k, cfg.moe_capacity_factor)
+    slots_per_token = E * C / num_tokens
+    return 6.0 * (n - E * one_expert + slots_per_token * one_expert) + attention
+
+
+def moe_case(x, params, dy, dtype, capacity_factor, top_k=2) -> dict:
+    """moe_mlp against moe_mlp_plain on the same inputs: routing decision
+    for decision, y, aux and the gradients of sum(y * dy) + aux with
+    respect to x and every parameter; two calls of moe_mlp bitwise equal;
+    both timed, forward (no grad) and forward + backward."""
+    from ray_tpu_torch.ops import moe
+
+    B, S, D = x.shape
+    T = B * S
+    E = params["router_w"].shape[-1]
+    C = moe.moe_capacity(T, E, top_k, capacity_factor)
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor, dtype=dtype)
+    with torch.no_grad():
+        r = moe.route(x.reshape(T, D), params["router_w"], top_k, C)
+        rp = moe.route_plain(x.reshape(T, D), params["router_w"], top_k, C)[0]
+    same_routing = {n: torch.equal(getattr(r, n), getattr(rp, n))
+                    for n in ("expert", "pos", "keep")}
+    dropped = 1.0 - r.keep.float().mean().item()
+
+    leaves = {n: v.detach().clone().requires_grad_(True) for n, v in params.items()}
+    xg = x.detach().clone().requires_grad_(True)
+
+    def fwd_bwd(fn):
+        for t in (xg, *leaves.values()):
+            t.grad = None
+        y, aux = fn(xg, leaves, **kw)
+        ((y.float() * dy).sum() + aux).backward()
+        return y.detach(), aux.detach(), {"x": xg.grad, **{
+            n: v.grad for n, v in leaves.items()}}
+
+    y, aux, g = fwd_bwd(moe.moe_mlp)
+    y2, aux2, g2 = fwd_bwd(moe.moe_mlp)
+    bitwise = (torch.equal(y, y2) and torch.equal(aux, aux2)
+               and all(torch.equal(g[n], g2[n]) for n in g))
+    del y2, aux2, g2
+    yp, auxp, gp = fwd_bwd(moe.moe_mlp_plain)
+    torch.cuda.synchronize()
+    y_err = rel_err(y, yp)
+    aux_err = abs(aux.item() - auxp.item()) / abs(auxp.item())
+    grad_errs = {n: rel_err(g[n], gp[n]) for n in g}
+    del yp, gp
+
+    def forward(fn):
+        def call():
+            with torch.no_grad():
+                return fn(x, params, **kw)
+        return call
+
+    times = {
+        "ms": cuda_ms(forward(moe.moe_mlp), iters=10),
+        "plain_ms": cuda_ms(forward(moe.moe_mlp_plain), iters=5, warmup=1),
+        "fwd_bwd_ms": cuda_ms(lambda: fwd_bwd(moe.moe_mlp), iters=10),
+        "plain_fwd_bwd_ms": cuda_ms(lambda: fwd_bwd(moe.moe_mlp_plain), iters=5,
+                                    warmup=1),
+    }
+    F_ = params["fc_w"].shape[-1]
+    expert_flops = 4 * E * C * D * F_       # the two expert products, forward
+    row = dict(dtype=str(dtype).replace("torch.", ""), tokens=T, experts=E,
+               top_k=top_k, capacity_factor=capacity_factor, capacity=C,
+               slots_per_token=E * C / T, dropped_share=dropped,
+               same_routing=same_routing, bitwise_repeatable=bitwise,
+               y_rel_err=y_err, aux_rel_err=aux_err, grad_rel_err=grad_errs,
+               expert_product_flops=expert_flops, **times)
+    log(f"[moe] {json.dumps(row)}")
+    y_tol, grad_tol = MOE_Y_REL_TOL[dtype], MOE_GRAD_REL_TOL[dtype]
+    if not all(same_routing.values()):
+        fail(f"moe_mlp routes otherwise than moe_mlp_plain: {same_routing}")
+    if not bitwise:
+        fail("two calls of moe_mlp differ")
+    if not (y_err <= y_tol and aux_err <= MOE_AUX_REL_TOL
+            and all(e <= grad_tol for e in grad_errs.values())):
+        fail(f"moe_mlp disagrees with moe_mlp_plain: y {y_err} (tol {y_tol}), "
+             f"aux {aux_err} (tol {MOE_AUX_REL_TOL}), gradients {grad_errs} "
+             f"(tol {grad_tol})")
+    return row
+
+
+def moe_layer_cases(gen) -> list:
+    """Phase [moe]: the MoE layer at GPT-2-124M's width with 8 experts, one
+    request's tokens (REQUEST_BATCH x 1024), random weights at the init's
+    scales with nonzero biases (so that the bias adds and the empty slots'
+    outputs count), in bf16 and f32, at capacity factors 1.25 and 0.5."""
+    from ray_tpu_torch.ops import moe
+
+    D, F_ = 768, 3072
+    params = {n: v[0] for n, v in moe.moe_init(gen, 1, D, F_, MOE_EXPERTS,
+                                                device="cuda").items()}
+    for n in ("fc_b", "out_b"):
+        params[n] = 0.02 * torch.randn(params[n].shape, generator=gen,
+                                       device="cuda")
+    x = torch.randn(REQUEST_BATCH, 1024, D, generator=gen, device="cuda")
+    dy = torch.randn(x.shape, generator=gen, device="cuda")
+    rows = []
+    for cf in (1.25, 0.5):
+        for dtype in (torch.bfloat16, torch.float32):
+            rows.append(moe_case(x.to(dtype), params, dy, dtype, cf))
+    if not rows[-1]["dropped_share"] > 0:
+        fail("capacity factor 0.5 dropped no choice")
+    return rows
+
+
 def free_device_memory() -> None:
     """Between paths: free what the last one left, so that each path's peak
     memory is its own."""
@@ -713,7 +1000,9 @@ def serve_path(card: str, profile: bool, tag: str, name: str, model, cfg,
     set to 0 just before and read just after: flash_fwd must have run once
     per layer per request, flash_bwd never. The logits of the first request
     are checked against the same weights through the plain attention path,
-    within logits_tol = (max, mean). Returns flash_fwd's launches."""
+    within logits_tol = (max, mean); with MoE the routing decisions that
+    differ between the two paths are counted and bounded. Returns
+    flash_fwd's launches."""
     from ray_tpu_torch.train.batch_predictor import TorchPredictor
     from ray_tpu_torch.train.checkpoint import Checkpoint
     from ray_tpu_torch.train.train_step import synthetic_batch
@@ -774,28 +1063,42 @@ def serve_path(card: str, profile: bool, tag: str, name: str, model, cfg,
     # the same weights and batch through the plain attention path
     toks = torch.as_tensor(requests[0], device="cuda")
     plain_cfg = replace(cfg, attention_impl="xla")
-    with torch.inference_mode():
-        lk = model.forward(params, toks, cfg).float()
-        lp = model.forward(params, toks, plain_cfg).float()
-        with f32_attention(model):
-            lf = model.forward(params, toks, cfg).float()
-    for path, logits in (("kernel", lk), ("plain", lp)):
-        d = (logits - lf).abs()
+    routing = {"kernel": [], "plain": [], "f32": []}
+
+    def logits(impl_cfg, path=None):
+        with torch.inference_mode(), routing_of(model, cfg, routing, path):
+            return model.forward(params, toks, impl_cfg).float()
+
+    lk, lp = logits(cfg, "kernel"), logits(plain_cfg, "plain")
+    with f32_attention(model):
+        lf = logits(cfg, "f32")
+    for path, out in (("kernel", lk), ("plain", lp)):
+        d = (out - lf).abs()
         log(f"[{tag}] {path} path vs attention in f32: max |err| "
             f"{d.max().item()}, mean |err| {d.mean().item()}")
     del lf, d
-    diff = (lk - lp).abs()
-    agree = (lk[:, :, :cfg.vocab_size].argmax(-1)
-             == lp[:, :, :cfg.vocab_size].argmax(-1)).float().mean().item()
-    max_tol, mean_tol = logits_tol
-    log(f"[{tag}] logits vs plain attention path: max |err| "
-        f"{diff.max().item()} (tol {max_tol}), mean |err| "
-        f"{diff.mean().item()} (tol {mean_tol}), |logits| max "
-        f"{lp.abs().max().item()}, argmax agreement {agree}")
-    if not (torch.isfinite(lk).all() and diff.max().item() <= max_tol
-            and diff.mean().item() <= mean_tol):
-        fail(f"{name} serving logits disagree with the plain attention path")
-    del lk, lp, diff
+    checks = [("plain attention path", lp, logits_tol)]
+    if is_moe(cfg):
+        flips = report_routing(tag, routing)
+        with forced_routing(routing["kernel"]):
+            checks.append(("plain attention path on the kernel path's routing",
+                           logits(plain_cfg), (LOGITS_MAX_TOL, LOGITS_MEAN_TOL)))
+    failed = []
+    for what, ref, (max_tol, mean_tol) in checks:
+        diff = (lk - ref).abs()
+        agree = (lk[:, :, :cfg.vocab_size].argmax(-1)
+                 == ref[:, :, :cfg.vocab_size].argmax(-1)).float().mean().item()
+        log(f"[{tag}] logits vs {what}: max |err| {diff.max().item()} (tol "
+            f"{max_tol}), mean |err| {diff.mean().item()} (tol {mean_tol}), "
+            f"|logits| max {ref.abs().max().item()}, argmax agreement {agree}")
+        if not (torch.isfinite(lk).all() and diff.max().item() <= max_tol
+                and diff.mean().item() <= mean_tol):
+            failed.append(what)
+    del lk, lp, checks, diff
+    if is_moe(cfg):
+        check_flips(tag, flips)
+    if failed:
+        fail(f"{name} serving logits disagree with the {failed}")
 
     if profile:
         profile_device_time(f"one {name} request",
@@ -807,6 +1110,10 @@ _CATEGORIES = (        # kernel name fragment -> category, first match wins
     ("flash_fwd_kernel", "flash_fwd"),
     ("flash_bwd", "flash_bwd (prologue, main kernel, dq cast)"),
     ("nvjet", "matrix products (cuBLAS)"), ("gemm", "matrix products (cuBLAS)"),
+    ("index", "indexing (MoE dispatch and combine, embedding lookup)"),
+    ("gather", "indexing (MoE dispatch and combine, embedding lookup)"),
+    ("scatter", "indexing (MoE dispatch and combine, embedding lookup)"),
+    ("sort", "MoE routing (sort, scan)"), ("scan", "MoE routing (sort, scan)"),
     ("reduce_kernel", "reductions"), ("copy", "copies and casts"),
     ("elementwise", "other elementwise"),
 )
@@ -845,49 +1152,71 @@ def profile_device_time(what: str, fn, top: int = 12):
             f"x{e.count:<4d} {e.key[:90]}")
 
 
-def compare_gradients(tag: str, model, cfg, params, batch, grad_tol) -> None:
+def compare_gradients(tag: str, model, cfg, params, batch, grad_tol,
+                      loss_tol=LOSS_TOL) -> None:
     """The loss and every parameter's gradient of one batch, flash kernels
-    against the plain attention path of the same model, within LOSS_TOL and
-    grad_tol of each leaf's max-abs."""
+    against the plain attention path of the same model, within loss_tol and
+    grad_tol of each leaf's max-abs; with MoE the routing decisions that
+    differ between the two paths are counted and bounded."""
     from ray_tpu_torch.train.train_step import named_leaves, param_leaves
 
     leaves = param_leaves(params)
     names = [name for name, _ in named_leaves(params)]
+    routing = {"kernel": [], "plain": [], "f32": []}
+    plain_cfg = replace(cfg, attention_impl="xla")
 
-    def loss_and_grads(impl_cfg):
-        loss = model.loss_fn(params, batch["tokens"], batch["targets"], impl_cfg)
+    def loss_and_grads(impl_cfg, path=None):
+        with routing_of(model, cfg, routing, path):
+            loss = model.loss_fn(params, batch["tokens"], batch["targets"],
+                                 impl_cfg)
         return loss.item(), torch.autograd.grad(loss, leaves)
 
-    (lk, gk), (lp, gp) = (loss_and_grads(c) for c in
-                          (cfg, replace(cfg, attention_impl="xla")))
+    lk, gk = loss_and_grads(cfg, "kernel")
+    lp, gp = loss_and_grads(plain_cfg, "plain")
     with f32_attention(model):
-        lf, gf = loss_and_grads(cfg)
+        lf, gf = loss_and_grads(cfg, "f32")
     for path, loss, grads in (("kernel", lk, gk), ("plain", lp, gp)):
         errs = {n: rel_err(a, b) for n, a, b in zip(names, grads, gf)}
         far = max(errs, key=errs.get)
         log(f"[{tag}] {path} path vs attention in f32: loss {loss} vs {lf}, "
             f"worst gradient {far} {errs[far]}")
     del gf
-    by_leaf = {n: rel_err(a, b) for n, a, b in zip(names, gk, gp)}
-    worst = max(by_leaf, key=by_leaf.get)
-    log(f"[{tag}] B{len(batch['tokens'])} loss flash {lk} vs plain {lp} (tol "
-        f"{LOSS_TOL}); gradient relative errors {json.dumps(by_leaf)}, worst "
-        f"{worst} {by_leaf[worst]} (tol {grad_tol})")
-    if not (abs(lk - lp) <= LOSS_TOL and by_leaf[worst] <= grad_tol):
-        fail(f"{tag}: loss or gradients disagree with the plain attention path")
+    checks = [("plain attention path", lp, gp, loss_tol, grad_tol)]
+    if is_moe(cfg):
+        flips = report_routing(tag, routing)
+        with forced_routing(routing["kernel"]):
+            checks.append(("plain attention path on the kernel path's routing",
+                           *loss_and_grads(plain_cfg), LOSS_TOL,
+                           GRAD_PATH_REL_TOL))
+    failed = []
+    for what, loss, grads, l_tol, g_tol in checks:
+        by_leaf = {n: rel_err(a, b) for n, a, b in zip(names, gk, grads)}
+        worst = max(by_leaf, key=by_leaf.get)
+        log(f"[{tag}] B{len(batch['tokens'])} vs {what}: loss flash {lk} vs "
+            f"{loss} (tol {l_tol}); gradient relative errors "
+            f"{json.dumps(by_leaf)}, worst {worst} {by_leaf[worst]} (tol "
+            f"{g_tol})")
+        if not (abs(lk - loss) <= l_tol and by_leaf[worst] <= g_tol):
+            failed.append(what)
+    if is_moe(cfg):
+        check_flips(tag, flips)
+    if failed:
+        fail(f"{tag}: loss or gradients disagree with the {failed}")
 
 
 def train_path(card: str, profile: bool, tag: str, name: str, model,
                make_train_step, cfg, batch: int, compare_batch: int,
-               grad_tol: float) -> dict:
+               grad_tol: float, loss_tol: float = LOSS_TOL) -> dict:
     """make_train_step(cfg, device="cuda") (remat as cfg says), one warm-up
     step, then TRAIN_STEPS steps on one repeated synthetic batch of
     batch x seq_len tokens. Launch counts are set to 0 just before the
     steps and read just after: flash_fwd and flash_bwd must each have run
     once per layer per step. Loss and grad norm must be finite and the loss
-    must fall. Then the loss and gradients of one compare_batch batch are
-    checked against the plain attention path (grad_tol). Returns the
-    launches."""
+    must fall. The share of 989 TFLOP/s is printed from the work the card
+    executes and from the JAX formula (flops_per_token; the two differ only
+    with MoE). Then the loss and gradients of one compare_batch batch are
+    checked against the plain attention path (loss_tol, grad_tol). Returns
+    the launches."""
     from ray_tpu_torch.train.train_step import default_optimizer, synthetic_batch
 
     t0 = time.perf_counter()
@@ -926,14 +1255,17 @@ def train_path(card: str, profile: bool, tag: str, name: str, model,
         fail(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
     step_s = sorted(times)[len(times) // 2]
     tokens_per_s = batch * cfg.seq_len / step_s
+    executed = executed_flops_per_token(model, cfg, batch * cfg.seq_len)
     log(f"[{tag}] " + json.dumps(dict(
         card=card, model=name, batch=batch, seq_len=cfg.seq_len,
         steps=TRAIN_STEPS, loss=losses, grad_norm=norms,
         step_ms=[t * 1e3 for t in times], step_ms_median=step_s * 1e3,
         tokens_per_s=tokens_per_s, peak_memory_bytes=peak,
-        flops_per_token=model.flops_per_token(cfg),
-        share_of_989_tflops=model.flops_per_token(cfg) * tokens_per_s
-        / PEAK_BF16_FLOPS,
+        executed_flops_per_token=executed,
+        share_of_989_tflops_executed=executed * tokens_per_s / PEAK_BF16_FLOPS,
+        jax_formula_flops_per_token=model.flops_per_token(cfg),
+        share_of_989_tflops_jax_formula=model.flops_per_token(cfg)
+        * tokens_per_s / PEAK_BF16_FLOPS,
     )))
     if profile:
         def one_step():
@@ -942,7 +1274,8 @@ def train_path(card: str, profile: bool, tag: str, name: str, model,
         profile_device_time(f"one {name} training step", one_step, top=16)
 
     compare_gradients(tag, model, cfg, state["params"],
-                      synthetic_batch(cfg, compare_batch, seed=1), grad_tol)
+                      synthetic_batch(cfg, compare_batch, seed=1), grad_tol,
+                      loss_tol)
     return launches
 
 
@@ -1032,6 +1365,19 @@ def main() -> int:
     free_device_memory()
     llama_hd128_gradients()
 
+    free_device_memory()
+    moe_layer_cases(gen)
+    free_device_memory()
+    moe_cfg = gpt2.gpt2_124m(moe_experts=MOE_EXPERTS)
+    moe_serve = serve_path(card, args.profile, "moe-serve", "gpt2_124m_moe8",
+                           gpt2, moe_cfg, N_REQUESTS, REQUEST_BATCH,
+                           (MOE_LOGITS_MAX_TOL, MOE_LOGITS_MEAN_TOL))
+    free_device_memory()
+    moe_train = train_path(card, args.profile, "moe-train", "gpt2_124m_moe8",
+                           gpt2, make_gpt2_train_step,
+                           replace(moe_cfg, remat=False), TRAIN_BATCH,
+                           COMPARE_BATCH, MOE_GRAD_PATH_REL_TOL, MOE_LOSS_TOL)
+
     def numbers(row, launches):
         """One path's numbers for a kernel: its launches on that path beside
         the case run at that path's shape."""
@@ -1047,10 +1393,13 @@ def main() -> int:
         "serve": numbers(fwd["main"], serve),
         "llama_serve": numbers(fwd["llama_serve"], llama_serve),
         "llama_train": numbers(bwd["fwd_llama_train"], llama_train["flash_fwd"]),
+        "moe_serve": numbers(fwd["main"], moe_serve),
+        "moe_train": numbers(bwd["fwd_main"], moe_train["flash_fwd"]),
     }
     bwd_paths = {
         "train": numbers(bwd["main"], train["flash_bwd"]),
         "llama_train": numbers(bwd["llama_train"], llama_train["flash_bwd"]),
+        "moe_train": numbers(bwd["main"], moe_train["flash_bwd"]),
     }
     log(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",

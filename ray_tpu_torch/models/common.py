@@ -43,31 +43,45 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     }
 
 
+def _parameter_dict(tree: Dict[str, Any]) -> nn.ParameterDict:
+    """A nested dict of tensors as nested ParameterDicts (a sub-dict, such as
+    GPT-2's blocks["moe"], becomes a submodule)."""
+    return nn.ParameterDict({
+        k: _parameter_dict(v) if isinstance(v, dict) else nn.Parameter(v)
+        for k, v in tree.items()
+    })
+
+
+def _tree(params: nn.ParameterDict) -> Dict[str, Any]:
+    return {k: _tree(v) if isinstance(v, nn.ParameterDict) else v
+            for k, v in params.items()}
+
+
 class ParamsModule(nn.Module):
     """An nn.Module over a model's parameter tree in the JAX layout: the
-    top-level tensors and the stacked block tensors as two ParameterDicts.
-    A model's module adds `forward`."""
+    top-level tensors and the stacked block tensors (nested where the tree
+    nests, as MoE blocks do) as ParameterDicts. A model's module adds
+    `forward`."""
 
     def __init__(self, cfg, params: Dict[str, Any]):
         super().__init__()
         self.cfg = cfg
-        self.top = nn.ParameterDict(
-            {k: nn.Parameter(v) for k, v in params.items() if k != "blocks"}
-        )
-        self.blocks = nn.ParameterDict(
-            {k: nn.Parameter(v) for k, v in params["blocks"].items()}
-        )
+        self.top = _parameter_dict(
+            {k: v for k, v in params.items() if k != "blocks"})
+        self.blocks = _parameter_dict(params["blocks"])
 
     def params(self) -> Dict[str, Any]:
-        return {**dict(self.top.items()), "blocks": dict(self.blocks.items())}
+        return {**_tree(self.top), "blocks": _tree(self.blocks)}
 
 
-def layers(blocks: Dict[str, torch.Tensor]) -> Iterator[Dict[str, torch.Tensor]]:
-    """One dict of views per layer of the stacked block parameters. unbind:
-    one stack of the layers' gradients in the backward (indexing w[i] would
-    add a zero-filled [L, ...] per layer)."""
-    for layer in zip(*(w.unbind(0) for w in blocks.values())):
-        yield dict(zip(blocks.keys(), layer))
+def layers(blocks: Dict[str, Any]) -> Iterator[Dict[str, Any]]:
+    """One (nested) dict of views per layer of the stacked block
+    parameters. unbind: one stack of the layers' gradients per leaf in the
+    backward (indexing w[i] would add a zero-filled [L, ...] per layer)."""
+    per_key = {k: list(layers(v)) if isinstance(v, dict) else v.unbind(0)
+               for k, v in blocks.items()}
+    for layer in zip(*per_key.values()):
+        yield dict(zip(per_key.keys(), layer))
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,

@@ -21,10 +21,16 @@ recomputed in the backward), "dots" saves only the matrix products'
 outputs (selective checkpointing, as jax.checkpoint_policies.
 checkpoint_dots does), False saves everything.
 
-Not ported yet: MoE blocks (moe_experts > 0) and pipeline parallelism (the
-port has no device mesh), both in later slices. `scan_layers` and the
-`attn_*block*` fields are kept for parity and have no effect here: the
-forward runs eagerly, layer by layer, and the kernels' tiles are fixed.
+MoE (moe_experts > 0): every block's MLP is `ops.moe.moe_mlp` over E
+experts with top-k routing; the blocks carry (x, aux) and the summed
+load-balancing loss joins `loss_fn` as moe_aux_coeff · aux. The expert
+parameters sit under blocks["moe"], stacked [L, E, ...].
+
+Not ported yet: pipeline parallelism (the port has no device mesh; the
+JAX model refuses it with MoE too) and the ep mesh axis, in a later slice.
+`scan_layers` and the `attn_*block*` fields are kept for parity and have
+no effect here: the forward runs eagerly, layer by layer, and the kernels'
+tiles are fixed.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from ray_tpu_torch.models.common import (  # params_from_jax: a JAX tree → tor
 )
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.cross_entropy import softmax_xent
+from ray_tpu_torch.ops.moe import moe_init, moe_mlp, moe_param_shapes
 
 
 @dataclass(frozen=True)
@@ -132,37 +139,35 @@ def gpt2_tiny(**overrides) -> GPT2Config:
     )
 
 
-def _require_dense(cfg: GPT2Config) -> None:
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE blocks (moe_experts > 0) are not ported yet; they come with "
-            "the ops/moe slice"
-        )
-
-
 # --------------------------------------------------------------------------- #
 # Parameters
 # --------------------------------------------------------------------------- #
 
 def _param_shapes(cfg: GPT2Config) -> Dict[str, Any]:
     D, H, hd, Fd, L = cfg.d_model, cfg.n_head, cfg.head_dim, cfg.d_ff, cfg.n_layer
+    blocks = {
+        "ln1_scale": (L, D),
+        "ln1_bias": (L, D),
+        "qkv_w": (L, D, 3, H, hd),
+        "qkv_b": (L, 3, H, hd),
+        "proj_w": (L, H, hd, D),
+        "proj_b": (L, D),
+        "ln2_scale": (L, D),
+        "ln2_bias": (L, D),
+        "fc_w": (L, D, Fd),
+        "fc_b": (L, Fd),
+        "out_w": (L, Fd, D),
+        "out_b": (L, D),
+    }
+    if cfg.moe_experts > 0:
+        # the dense MLP is replaced wholesale, as in the JAX model
+        for key in ("fc_w", "fc_b", "out_w", "out_b"):
+            del blocks[key]
+        blocks["moe"] = moe_param_shapes(L, D, Fd, cfg.moe_experts)
     return {
         "wte": (cfg.padded_vocab, D),
         "wpe": (cfg.seq_len, D),
-        "blocks": {
-            "ln1_scale": (L, D),
-            "ln1_bias": (L, D),
-            "qkv_w": (L, D, 3, H, hd),
-            "qkv_b": (L, 3, H, hd),
-            "proj_w": (L, H, hd, D),
-            "proj_b": (L, D),
-            "ln2_scale": (L, D),
-            "ln2_bias": (L, D),
-            "fc_w": (L, D, Fd),
-            "fc_b": (L, Fd),
-            "out_w": (L, Fd, D),
-            "out_b": (L, D),
-        },
+        "blocks": blocks,
         "lnf_scale": (D,),
         "lnf_bias": (D,),
     }
@@ -174,8 +179,9 @@ def init(
     """GPT-2 initialization: N(0, 0.02), residual projections scaled
     1/sqrt(2L), wpe N(0, 0.01), LayerNorm scales 1 and every bias 0 — the
     JAX init's distribution (not its numbers: the generators differ).
-    Random numbers are drawn on the generator's device, then moved."""
-    _require_dense(cfg)
+    Random numbers are drawn on the generator's device, then moved. With
+    moe_experts > 0 the dense MLP's parameters give way to `moe_init`'s
+    under blocks["moe"]."""
     std = 0.02
     resid_std = std / math.sqrt(2 * cfg.n_layer)
     stds = {"wte": std, "wpe": 0.01, "qkv_w": std, "proj_w": resid_std,
@@ -194,24 +200,25 @@ def init(
 
     shapes = _param_shapes(cfg)
     params = {k: make(k, s) for k, s in shapes.items() if k != "blocks"}
-    params["blocks"] = {k: make(k, s) for k, s in shapes["blocks"].items()}
+    params["blocks"] = {k: make(k, s) for k, s in shapes["blocks"].items()
+                        if k != "moe"}
+    if cfg.moe_experts > 0:
+        params["blocks"]["moe"] = moe_init(
+            generator, cfg.n_layer, cfg.d_model, cfg.d_ff, cfg.moe_experts,
+            param_dtype=cfg.param_dtype, resid_std=resid_std, device=device,
+        )
     return params
 
 
 def param_count(cfg: GPT2Config) -> int:
-    _require_dense(cfg)
-    shapes = _param_shapes(cfg)
-    leaves = [s for k, s in shapes.items() if k != "blocks"]
-    leaves += list(shapes["blocks"].values())
-    return sum(math.prod(s) for s in leaves)
+    def count(shapes):
+        return sum(count(s) if isinstance(s, dict) else math.prod(s)
+                   for s in shapes.values())
+    return count(_param_shapes(cfg))
 
 
 class GPT2(ParamsModule):
     """GPT-2 as an nn.Module over the JAX-layout parameters."""
-
-    def __init__(self, cfg: GPT2Config, params: Dict[str, Any]):
-        _require_dense(cfg)
-        super().__init__(cfg, params)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self.params(), tokens, self.cfg)
@@ -243,8 +250,11 @@ def _attention(q, k, v, cfg: GPT2Config):
     return plain_causal_attention(q, k, v)
 
 
-def _block(x, p: Dict[str, torch.Tensor], cfg: GPT2Config):
-    """One transformer block. x: [B, S, D]."""
+def _block(x, p: Dict[str, Any], cfg: GPT2Config):
+    """One transformer block. x: [B, S, D], or (x, aux) with MoE: the
+    load-balancing loss accumulates through the layer carry."""
+    if cfg.moe_experts > 0:
+        x, aux = x
     B, S, D = x.shape
     H, hd, dt = cfg.n_head, cfg.head_dim, cfg.dtype
     h = _layernorm(x, p["ln1_scale"], p["ln1_bias"])
@@ -256,27 +266,39 @@ def _block(x, p: Dict[str, torch.Tensor], cfg: GPT2Config):
     attn = attn.transpose(1, 2).reshape(B, S, H * hd)
     x = x + attn @ p["proj_w"].to(dt).reshape(H * hd, D) + p["proj_b"].to(dt)
     h = _layernorm(x, p["ln2_scale"], p["ln2_bias"])
+    if cfg.moe_experts > 0:
+        y, layer_aux = moe_mlp(
+            h, p["moe"], top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, dtype=dt,
+        )
+        return x + y, aux + layer_aux
     h = h @ p["fc_w"].to(dt) + p["fc_b"].to(dt)
     h = F.gelu(h, approximate="tanh")
     return x + h @ p["out_w"].to(dt) + p["out_b"].to(dt)
 
 
 def _trunk(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config):
-    """tokens [B, S] int → final hidden states [B, S, D] (compute dtype)."""
-    _require_dense(cfg)
+    """tokens [B, S] int → (final hidden states [B, S, D] in the compute
+    dtype, the MoE load-balancing loss summed over layers: f32, 0 when
+    dense)."""
     wte = params["wte"]
     tokens = torch.as_tensor(tokens, device=wte.device).long()
     S = tokens.shape[1]
     dt = cfg.dtype
     x = wte.to(dt)[tokens] + params["wpe"][:S].to(dt)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.moe_experts > 0:
+        x = (x, aux)    # thread the aux loss through the layers
     for layer in layers(params["blocks"]):
         x = run_block(_block, cfg.remat, x, layer, cfg)
-    return _layernorm(x, params["lnf_scale"], params["lnf_bias"])
+    if cfg.moe_experts > 0:
+        x, aux = x
+    return _layernorm(x, params["lnf_scale"], params["lnf_bias"]), aux
 
 
 def forward(params: Dict[str, Any], tokens, cfg: GPT2Config) -> torch.Tensor:
     """tokens [B, S] int → logits [B, S, padded_vocab] (compute dtype)."""
-    x = _trunk(params, tokens, cfg)
+    x, _ = _trunk(params, tokens, cfg)
     # tied LM head
     return x @ params["wte"].to(cfg.dtype).T
 
@@ -294,7 +316,8 @@ def _chunk_nll(x_c, targets_c, wte):
 def loss_fn(
     params: Dict[str, Any], tokens, targets, cfg: GPT2Config,
 ) -> torch.Tensor:
-    """Mean next-token cross-entropy, f32 scalar. targets [B, S] int
+    """Mean next-token cross-entropy plus moe_aux_coeff times the MoE
+    load-balancing loss (0 when dense), f32 scalar. targets [B, S] int
     (-1 = ignore).
 
     With loss_chunk = 0 (or one that does not divide S, or equals it) the
@@ -303,7 +326,8 @@ def loss_fn(
     cut into chunks, each chunk's logits built, reduced to a scalar and
     rebuilt in the backward (torch.utils.checkpoint): the full [B, S, V]
     logits never exist at once. Same math, f32 softmax, in both."""
-    x = _trunk(params, tokens, cfg)
+    x, moe_aux = _trunk(params, tokens, cfg)
+    aux_term = cfg.moe_aux_coeff * moe_aux
     S = x.shape[1]
     targets = torch.as_tensor(targets, device=x.device).long()
     wte = params["wte"].to(cfg.dtype)
@@ -311,19 +335,21 @@ def loss_fn(
     if chunk <= 0 or S % chunk or S == chunk:
         nll = softmax_xent(x @ wte.T, targets)
         count = (targets >= 0).sum()
-        return nll.sum() / count.clamp(min=1)
+        return nll.sum() / count.clamp(min=1) + aux_term
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.long, device=x.device)
     for i in range(0, S, chunk):
         s, c = checkpoint(_chunk_nll, x[:, i:i + chunk],
                           targets[:, i:i + chunk], wte, use_reentrant=False)
         total, count = total + s, count + c
-    return total / count.clamp(min=1)
+    return total / count.clamp(min=1) + aux_term
 
 
 def flops_per_token(cfg: GPT2Config) -> float:
     """Approximate training FLOPs per token (fwd+bwd ≈ 6N + attention term),
-    the JAX package's formula."""
+    the JAX package's formula. With MoE, N counts all E experts, though a
+    token runs through k of them (and the card through E·C capacity slots
+    per T tokens)."""
     n = param_count(cfg)
     attn = 12 * cfg.n_layer * cfg.d_model * cfg.seq_len  # 2*2*3 per token
     return 6.0 * n + attn

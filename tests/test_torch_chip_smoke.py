@@ -109,3 +109,88 @@ def test_sass_highest_register_per_function(smoke, monkeypatch):
     assert calls == [["/cuda/bin/cuobjdump", "-sass", "lib.so"]]
     assert top == {"_ZN12_GLOBAL__N_116flash_bwd_kernelILi64EEEv": "R237",
                    "_Z4castPKfP13__nv_bfloat16xf": "R19"}
+
+
+def test_executed_flops_of_the_moe_training_path(smoke):
+    """gpt2_124m(moe_experts=8) at B 24 x 1024: C = ceil(2 * 24576 / 8 *
+    1.25) = 7680, so the card runs 8 * 7680 / 24576 = 2.5 expert slots a
+    token; by hand, 6 * (67,880,448 non-expert parameters + 2.5 *
+    56,669,184 parameters of one expert in every layer) + 113,246,208 for
+    attention (12 * L * D * S). The JAX formula counts all 8 experts."""
+    from ray_tpu_torch.models import gpt2
+
+    cfg = gpt2.gpt2_124m(moe_experts=8)
+    one_expert = 12 * (768 * 3072 + 3072 + 3072 * 768 + 768)
+    assert one_expert == 56_669_184
+    assert gpt2.param_count(cfg) - 8 * one_expert == 67_880_448
+    by_hand = 6 * (67_880_448 + 2.5 * 56_669_184) + 12 * 12 * 768 * 1024
+    assert by_hand == 1_370_566_656
+    assert smoke.executed_flops_per_token(gpt2, cfg, 24 * 1024) == by_hand
+    assert gpt2.flops_per_token(cfg) == 6 * 521_233_920 + 113_246_208
+    dense = gpt2.gpt2_124m()
+    assert (smoke.executed_flops_per_token(gpt2, dense, 24 * 1024)
+            == gpt2.flops_per_token(dense))
+
+
+def test_routing_flip_counter_on_hand_made_routings(smoke):
+    """Two layers of 3 tokens, top-2: run b chooses expert 3 instead of 2
+    for token 1's second choice in layer 0, and keeps token 2's first
+    choice in layer 1 where run a dropped it."""
+    def routing(expert, keep):
+        return types.SimpleNamespace(expert=torch.tensor(expert),
+                                     keep=torch.tensor(keep))
+
+    kept = [[True, True]] * 3
+    a = [routing([[0, 1], [1, 2], [2, 0]], kept),
+         routing([[1, 0], [0, 1], [3, 2]], [[True, True], [True, True],
+                                            [False, True]])]
+    b = [routing([[0, 1], [1, 3], [2, 0]], kept),
+         routing([[1, 0], [0, 1], [3, 2]], kept)]
+    assert smoke.routing_flips(a, b) == {
+        "decisions": 12, "expert_differs": 1, "drop_differs": 1,
+        "expert_differs_by_layer": [1, 0], "drop_differs_by_layer": [0, 1],
+        "dropped": 1}
+    same = smoke.routing_flips(a, a)
+    assert same["expert_differs"] == same["drop_differs"] == 0
+    with pytest.raises(SystemExit, match="routing recorded"):
+        smoke.routing_flips(a, b[:1])
+
+
+def test_forced_routing_replays_a_recorded_routing(smoke):
+    """A forward under forced_routing of its own recorded routing gives the
+    same logits; route is restored after the block."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import moe
+
+    cfg = gpt2.gpt2_tiny(moe_experts=4)
+    params = gpt2.init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 512, (2, 64)))
+    routing = {"kernel": []}
+    own = moe.route
+    with torch.inference_mode():
+        with smoke.routing_of(gpt2, cfg, routing, "kernel"):
+            logits = gpt2.forward(params, toks, cfg)
+        assert len(routing["kernel"]) == cfg.n_layer
+        with smoke.forced_routing(routing["kernel"]):
+            assert moe.route is not own
+            assert torch.equal(gpt2.forward(params, toks, cfg), logits)
+    assert moe.route is own
+
+
+def test_recorded_routing_sees_every_moe_layer(smoke):
+    """recorded_routing wraps models.gpt2's MoE layer for the block only:
+    one (expert, keep) pair per layer, the same logits as without it."""
+    from ray_tpu_torch.models import gpt2
+
+    cfg = gpt2.gpt2_tiny(moe_experts=4)
+    params = gpt2.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 64)))
+    sink = []
+    with torch.inference_mode():
+        with smoke.recorded_routing(gpt2, sink):
+            logits = gpt2.forward(params, toks, cfg)
+        assert torch.equal(logits, gpt2.forward(params, toks, cfg))
+    assert gpt2.moe_mlp.__name__ == "moe_mlp"
+    assert len(sink) == cfg.n_layer
+    assert all(r.expert.shape == (128, 2) and r.keep.dtype == torch.bool
+               for r in sink)

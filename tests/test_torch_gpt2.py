@@ -116,9 +116,13 @@ def test_later_slices_raise_not_implemented():
         cfg = tgpt2.gpt2_tiny(attention_impl="ring")
         tgpt2.forward(tgpt2.init(cfg, torch.Generator(), device="cpu"),
                       torch.zeros(1, 8, dtype=torch.long), cfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tgpt2.init(tgpt2.gpt2_tiny(moe_experts=4), torch.Generator(),
+    # MoE blocks came with the ops/moe slice: init builds the moe subtree
+    p = tgpt2.init(tgpt2.gpt2_tiny(moe_experts=4), torch.Generator(),
                    device="cpu")
+    assert "fc_w" not in p["blocks"]
+    assert {k: tuple(v.shape) for k, v in p["blocks"]["moe"].items()} == {
+        "router_w": (2, 128, 4), "fc_w": (2, 4, 128, 512),
+        "fc_b": (2, 4, 512), "out_w": (2, 4, 512, 128), "out_b": (2, 4, 128)}
 
 
 @pytest.mark.parametrize("seed", [0, 3])
