@@ -6,6 +6,10 @@
                                        # one request's and one training
                                        # step's device time by kernel, on
                                        # every model path
+    python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.multi_card_check())"
+                                       # on 2-4 cards: only the multi-card
+                                       # fsdp run and the world-1 step it is
+                                       # held to
     python3 chip_smoke.py --compare-fwd OLD/flash_fwd.cu
     python3 chip_smoke.py --compare-bwd OLD/flash_bwd.cu
                                        # also time another design of a
@@ -73,7 +77,24 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    with the differing routing decisions counted.
    Each model path starts with the device memory the last one used freed,
    so that the peak memory it prints is its own.
-11. Print the kernels line (each kernel's numbers by model path), the card's
+11. [parallel] The port's device mesh at world 1: the smoke starts a
+   one-rank NCCL process group and make_mesh(MeshSpec()) on cuda.
+   GPT-2-124M at B 24 x 1024 through make_gpt2_train_step(mesh=...), 1 + 8
+   steps, and gpt2_124m(moe_experts=8), one step, each held to the plain
+   step from the same seeded parameters: first-step loss within 1e-6
+   relative, grad norm within 1e-3 and every gradient within the dense
+   limit, beside the plain step's own run-to-run spread (a second plain
+   run: flash_bwd's dq order); 12 launches of each kernel a step on both
+   paths; median step ms and peak memory of the mesh path beside the
+   plain path's. [pipeline] GPT-2-124M's 12 blocks as 4 stages of 3 through
+   parallel.pipeline.pipeline_apply without a group, 4 microbatches of the
+   B 24 batch, against the blocks one after another: loss and every
+   gradient within the dense limits, 48 launches of each kernel (the live
+   (layer, microbatch) pairs; the bubble is skipped), both timed. With 2
+   to 4 cards the phase also trains GPT-2-124M over fsdp on one NCCL rank
+   a card and holds it to the world-1 step; with one card it says that
+   run did not take place.
+12. Print the kernels line (each kernel's numbers by model path), the card's
    name and power limit, and last the result line {"ok": true, ...}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -87,6 +108,7 @@ import ctypes
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -198,6 +220,9 @@ MOE_EXPERTS = 8
 
 N_REQUESTS, REQUEST_BATCH = 4, 8
 TRAIN_BATCH, TRAIN_STEPS, COMPARE_BATCH = 24, 8, 8
+# [pipeline]: GPT-2-124M's 12 blocks as 4 stages of 3, the B 24 batch in 4
+# microbatches
+PIPELINE_STAGES, PIPELINE_MICROBATCHES = 4, 4
 # llama_7b: requests of 2 x 4096 tokens; llama_1b: TinyLlama's per-GPU
 # micro-batch of 8 x 2048 tokens, its gradients checked on one sequence
 # (the plain path keeps [B, 32, 2048, 2048] probabilities per layer);
@@ -661,6 +686,15 @@ def backward_cases(gen):
     rows["main"], full = check(
         f"causal B{TRAIN_BATCH} H12 S1024 hd64 (training shape)",
         q, k, v, o, lse, do, library=sdpa_backward(q, k, v, do, True))
+    # the [pipeline] path's microbatch: a quarter of the training batch
+    mb = TRAIN_BATCH // PIPELINE_MICROBATCHES
+    qm, km, vm, dm = (x[:mb].contiguous() for x in (q, k, v, do))
+    name = f"causal B{mb} H12 S1024 hd64 (pipeline microbatch)"
+    rows["fwd_pipeline"], om, lsem = forward_case(name, qm, km, vm,
+                                                  library=sdpa(qm, km, vm, True))
+    rows["pipeline"], _ = check(name, qm, km, vm, om, lsem, dm,
+                                library=sdpa_backward(qm, km, vm, dm, True))
+    del qm, km, vm, dm, om, lsem
     on, lsen = forward(q, k, v, causal=False)
     rows["full"], _ = check("non-causal", q, k, v, on, lsen, do, causal=False,
                             library=sdpa_backward(q, k, v, do, False))
@@ -1307,6 +1341,371 @@ def llama_hd128_gradients() -> None:
 
 
 # --------------------------------------------------------------------------- #
+# Phase 11: [parallel] the meshed train step and the local pipeline
+# --------------------------------------------------------------------------- #
+
+# the meshed step at world 1 against the plain step, from the same initial
+# parameters and batch: the same kernels and products on the same rows,
+# the collectives on groups of one (copies). The forward is the same, so
+# the first step's loss may differ only where the MoE aux loss takes its
+# means as global sums over the global count (1e-6 relative; measured 0).
+# The backward is not repeatable even on one path: flash_bwd sums dq in a
+# run-dependent order and the bf16 backward carries that on, so two plain
+# steps from the same parameters and batch differ in the grad norm
+# (GPT-2-124M and its MoE at B 24 on an H100: 9.1e-6 to 1.6e-4 relative)
+# and in each gradient by up to 1.2e-2 of its max-abs; the phase prints
+# that spread beside the mesh path's distance (measured: grad norm 1.3e-5
+# to 6.2e-5, worst gradient 1.1e-2). The grad norm is held to 1e-3 and
+# each gradient to the
+# dense limit GRAD_PATH_REL_TOL: a gradient counted twice or lost moves
+# its leaf by O(1). (The parameters after Adam's first step are not
+# compared: it moves each weight by about lr·sign(g), so a near-zero
+# gradient whose sign the dq order flips moves its weight by 2·lr on
+# either path alike.)
+MESH_LOSS_REL_TOL = 1e-6
+MESH_NORM_REL_TOL = 1e-3
+MULTI_CARD_MAX = 4
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def train_run(make_train_step, cfg, batch, device, steps: int,
+              mesh=None) -> dict:
+    """make_train_step(cfg) on `device`, over `mesh` when given, from the
+    parameters a generator seeded 0 draws, on one repeated batch: the
+    first step's loss and grad norm and each parameter's gradient in it
+    (this rank's shard), then `steps` more steps' losses, grad norms and
+    times (host clock around a synchronized step); the kernel launches of
+    all the steps (counts reset just before the first)."""
+    from ray_tpu_torch.train.train_step import default_optimizer, named_leaves
+
+    bundle = make_train_step(
+        cfg, optimizer=default_optimizer(warmup=2, total_steps=1000),
+        generator=torch.Generator(device=device).manual_seed(0),
+        device=device, mesh=mesh)
+    reset_launches()
+    state, m = bundle.step_fn(bundle.state, batch)
+    shards = state["opt_state"].param_groups[0]["params"]
+    run = {"first": {k: v.item() for k, v in m.items()},
+           "grads": {n: p.grad.detach().clone() for (n, _), p
+                     in zip(named_leaves(state["params"]), shards)},
+           "loss": [], "grad_norm": [], "step_ms": []}
+    for _ in range(steps):
+        t = time.perf_counter()
+        state, m = bundle.step_fn(state, batch)
+        sync(device)
+        run["step_ms"].append((time.perf_counter() - t) * 1e3)
+        run["loss"].append(m["loss"].item())
+        run["grad_norm"].append(m["grad_norm"].item())
+    run["launches"] = launches_since_reset()
+    return run
+
+
+def first_step_distance(a: dict, b: dict) -> dict:
+    """How far run a's first step is from run b's: loss and grad norm
+    relative to b's, each gradient by rel_err, the worst of them."""
+    out = {k: abs(a["first"][k] - b["first"][k]) / abs(b["first"][k])
+           for k in ("loss", "grad_norm")}
+    by_leaf = {n: rel_err(a["grads"][n], g) for n, g in b["grads"].items()}
+    worst = max(by_leaf, key=by_leaf.get)
+    return {**out, "grads": by_leaf, "worst_grad": worst,
+            "worst_grad_rel_err": by_leaf[worst]}
+
+
+def check_mesh_against_plain(tag: str, plain: dict, meshed: dict) -> dict:
+    """The first step of a world-1 mesh run against the plain run's: loss
+    within MESH_LOSS_REL_TOL relative, grad norm within MESH_NORM_REL_TOL,
+    each gradient within GRAD_PATH_REL_TOL of its max-abs (rel_err).
+    Returns the distances."""
+    d = first_step_distance(meshed, plain)
+    log(f"[{tag}] mesh vs plain, first step: "
+        f"{json.dumps({'mesh': meshed['first'], 'plain': plain['first']})}; "
+        f"relative errors loss {d['loss']} (tol {MESH_LOSS_REL_TOL}), grad "
+        f"norm {d['grad_norm']} (tol {MESH_NORM_REL_TOL}); gradients "
+        f"{json.dumps(d['grads'])}, worst {d['worst_grad']} "
+        f"{d['worst_grad_rel_err']} (tol {GRAD_PATH_REL_TOL})")
+    if not (d["loss"] <= MESH_LOSS_REL_TOL
+            and d["grad_norm"] <= MESH_NORM_REL_TOL
+            and d["worst_grad_rel_err"] <= GRAD_PATH_REL_TOL):
+        fail(f"{tag}: the mesh step disagrees with the plain step: loss "
+             f"{d['loss']}, grad norm {d['grad_norm']}, {d['worst_grad']} "
+             f"{d['worst_grad_rel_err']}")
+    return d
+
+
+def pipeline_and_sequential(cfg, batch, device, stages: int,
+                            microbatches: int, repeats: int = 3) -> dict:
+    """GPT-2's blocks as a `stages`-stage GPipe pipeline in this process
+    (pipeline_apply without a group, `microbatches` microbatches of the
+    batch) against the same blocks one after another, from one seeded
+    init: the loss (embedding, blocks, final LayerNorm, tied head, mean
+    cross-entropy) and every gradient; the kernel launches of one
+    pipelined forward and backward (counts reset just before); each path's
+    median time over `repeats` (host clock around a synchronized forward
+    and backward)."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.common import layers
+    from ray_tpu_torch.ops.cross_entropy import softmax_xent
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply, stages_from_layers
+    from ray_tpu_torch.train.train_step import named_leaves, param_leaves
+
+    params = gpt2.init(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device)
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.as_tensor(batch["tokens"], device=device).long()
+    targets = torch.as_tensor(batch["targets"], device=device).long()
+    dt = cfg.dtype
+
+    def stage_fn(stage, h):
+        for layer in layers(stage):
+            h = gpt2._block(h, layer, cfg)
+        return h
+
+    def loss_and_grads(pipelined: bool):
+        x = params["wte"].to(dt)[tokens] + params["wpe"][:tokens.shape[1]].to(dt)
+        if pipelined:
+            y = pipeline_apply(stage_fn, stages_from_layers(params["blocks"], stages),
+                               x, num_stages=stages, num_microbatches=microbatches)
+        else:
+            y = stage_fn(params["blocks"], x)
+        h = gpt2._layernorm(y, params["lnf_scale"], params["lnf_bias"])
+        loss = softmax_xent(h @ params["wte"].to(dt).T, targets).sum()
+        loss = loss / (targets >= 0).sum()
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    reset_launches()
+    lp, gp = loss_and_grads(True)
+    launches = launches_since_reset()
+    ls, gs = loss_and_grads(False)
+    names = [n for n, _ in named_leaves(params)]
+    by_leaf = {n: rel_err(a, b) for n, a, b in zip(names, gp, gs)}
+    del gp, gs
+    ms = {}
+    for path in (True, False):
+        times = []
+        for _ in range(repeats):
+            t = time.perf_counter()
+            loss_and_grads(path)
+            sync(device)
+            times.append((time.perf_counter() - t) * 1e3)
+        ms["pipeline" if path else "sequential"] = sorted(times)[len(times) // 2]
+    worst = max(by_leaf, key=by_leaf.get)
+    return {"loss": lp, "sequential_loss": ls, "worst_grad": worst,
+            "worst_grad_rel_err": by_leaf[worst], "launches": launches,
+            "ms": ms}
+
+
+def fsdp_rank(rank: int, world: int, init_method: str, out: str) -> None:
+    """One rank of the multi-card run (the [parallel] phase starts `world`
+    of them on a machine with that many cards): GPT-2-124M over
+    MeshSpec(fsdp=world) on NCCL at B TRAIN_BATCH, as train_run; rank 0
+    writes the first step's metrics and the step times to `out` (JSON)."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.train.train_step import make_gpt2_train_step, synthetic_batch
+
+    mesh_lib.init_distributed("nccl", init_method=init_method, rank=rank,
+                              world_size=world, timeout_s=300)
+    try:
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(fsdp=world), "cuda")
+        cfg = gpt2.gpt2_124m(remat=False)
+        run = train_run(make_gpt2_train_step, cfg,
+                        synthetic_batch(cfg, TRAIN_BATCH, seed=0), "cuda",
+                        TRAIN_STEPS, mesh)
+        if rank == 0:
+            Path(out).write_text(json.dumps(
+                {k: run[k] for k in ("first", "loss", "grad_norm", "step_ms")}))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def multi_card(card: str, world_one: dict) -> None:
+    """With 2 or more cards: min(count, MULTI_CARD_MAX) NCCL ranks train
+    GPT-2-124M over fsdp, held to the world-1 mesh run (first step's loss
+    within LOSS_TOL, grad norm within GRAD_PATH_REL_TOL relative: the
+    rows are split, so the products round on other shapes). With one card
+    it says that the run did not take place."""
+    world = min(torch.cuda.device_count(), MULTI_CARD_MAX)
+    if world < 2:
+        log("[parallel] multi-card run: did not take place (one card; "
+            "multi-rank behaviour is proved on the CPU over gloo)")
+        return
+    init = f"tcp://localhost:{free_port()}"
+    out = REPO / "build" / "parallel_fsdp.json"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    code = ("import sys; sys.path.insert(0, {repo!r}); import chip_smoke; "
+            "chip_smoke.fsdp_rank({r}, {n}, {init!r}, {out!r})")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code.format(repo=str(REPO), r=r, n=world,
+                                           init=init, out=str(out))],
+        env={**os.environ, "LOCAL_RANK": str(r)})
+        for r in range(world)]
+    deadline = time.monotonic() + 600
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs) or not out.exists():
+        fail(f"multi-card fsdp run failed: exit codes {[p.returncode for p in procs]}")
+    run = json.loads(out.read_text())
+    loss_err = abs(run["first"]["loss"] - world_one["first"]["loss"])
+    norm_err = (abs(run["first"]["grad_norm"] - world_one["first"]["grad_norm"])
+                / world_one["first"]["grad_norm"])
+    step = sorted(run["step_ms"])[len(run["step_ms"]) // 2]
+    log(f"[parallel] " + json.dumps(dict(
+        card=card, cards=world, mesh=f"fsdp{world}", model="gpt2_124m",
+        batch=TRAIN_BATCH, first=run["first"], loss_err=loss_err,
+        grad_norm_rel_err=norm_err, loss=run["loss"], step_ms=run["step_ms"],
+        step_ms_median=step,
+        tokens_per_s_per_card=TRAIN_BATCH * 1024 / (step / 1e3) / world)))
+    if not (loss_err <= LOSS_TOL and norm_err <= GRAD_PATH_REL_TOL):
+        fail(f"multi-card fsdp{world} disagrees with the world-1 step: "
+             f"loss {loss_err}, grad norm {norm_err}")
+
+
+def multi_card_check() -> int:
+    """The multi-card run and what it is held to, alone, for a machine with
+    2 to 4 cards: python3 -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.multi_card_check())". Builds the kernels, trains
+    GPT-2-124M through the world-1 mesh path (one NCCL rank, card 0) as
+    the [parallel] phase does, then over fsdp on every card (multi_card)."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.train.train_step import make_gpt2_train_step, synthetic_batch
+
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke: the multi-card run needs 2 or more cards", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    card = nvidia_smi()
+    log(f"[env] {card}; {torch.cuda.device_count()} cards")
+    build()
+    mesh_lib.init_distributed("nccl", init_method=f"tcp://localhost:{free_port()}",
+                              rank=0, world_size=1, timeout_s=300)
+    try:
+        cfg = gpt2.gpt2_124m(remat=False)
+        world_one = train_run(
+            make_gpt2_train_step, cfg, synthetic_batch(cfg, TRAIN_BATCH, seed=0),
+            "cuda", TRAIN_STEPS, mesh_lib.make_mesh(mesh_lib.MeshSpec(), "cuda"))
+        log("[parallel] world 1: " + json.dumps(
+            {k: world_one[k] for k in ("first", "loss", "step_ms")}))
+        free_device_memory()
+        multi_card(card, world_one)
+    finally:
+        torch.distributed.destroy_process_group()
+    log(card)
+    return 0
+
+
+def parallel_phase(card: str) -> dict:
+    """[parallel]: a world-1 NCCL process group started here and its
+    make_mesh(MeshSpec()) on cuda. GPT-2-124M at B TRAIN_BATCH through the
+    mesh path, 1 + TRAIN_STEPS steps, held to the plain step (and timed
+    beside it); gpt2_124m(moe_experts=8), one step each way; the local
+    pipeline (PIPELINE_STAGES stages, PIPELINE_MICROBATCHES microbatches)
+    against the sequential blocks; the multi-card run where there are
+    cards for it. Returns the launches by path."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.train.train_step import make_gpt2_train_step, synthetic_batch
+
+    free_device_memory()
+    mesh_lib.init_distributed("nccl", init_method=f"tcp://localhost:{free_port()}",
+                              rank=0, world_size=1, timeout_s=300)
+    try:
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(), "cuda")
+        launches = {}
+        for tag, cfg, steps in (
+                ("parallel", gpt2.gpt2_124m(remat=False), TRAIN_STEPS),
+                ("parallel-moe", gpt2.gpt2_124m(moe_experts=MOE_EXPERTS,
+                                                remat=False), 0)):
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in synthetic_batch(cfg, TRAIN_BATCH, seed=0).items()}
+            runs, peak = {}, {}
+            # "again": the plain step once more, for its own run-to-run spread
+            for path, m, n in (("plain", None, steps), ("mesh", mesh, steps),
+                               ("again", None, 0)):
+                held = sum(g.numel() * g.element_size() for r in runs.values()
+                           for g in r["grads"].values())   # earlier runs' grads
+                runs[path] = train_run(make_gpt2_train_step, cfg, batch, "cuda",
+                                       n, m)
+                peak[path] = torch.cuda.max_memory_allocated() - held
+                free_device_memory()
+            spread = first_step_distance(runs.pop("again"), runs["plain"])
+            log(f"[{tag}] plain vs plain again, first step (the backward's "
+                f"run-to-run spread): loss {spread['loss']}, grad norm "
+                f"{spread['grad_norm']}, worst gradient {spread['worst_grad']} "
+                f"{spread['worst_grad_rel_err']}")
+            check_mesh_against_plain(tag, runs["plain"], runs["mesh"])
+            log(f"[{tag}] peak memory bytes of each run (less the earlier "
+                f"runs' gradients it holds): {json.dumps(peak)}")
+            expected = cfg.n_layer * (1 + steps)
+            for path, run in runs.items():
+                log(f"[{tag}] {path}: launches {json.dumps(run['launches'])} "
+                    f"(expected {expected} each)")
+                if run["launches"] != {"flash_fwd": expected, "flash_bwd": expected}:
+                    fail(f"{tag} {path} path launched {run['launches']}, "
+                         f"expected {expected} each")
+            launches[tag] = runs["mesh"]["launches"]
+            if steps:
+                losses = runs["mesh"]["loss"]
+                if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+                    fail(f"{tag}: mesh path losses {losses}")
+                med = {p: sorted(r["step_ms"])[steps // 2] for p, r in runs.items()}
+                log(f"[{tag}] " + json.dumps(dict(
+                    card=card, model="gpt2_124m", mesh="world 1 (MeshSpec())",
+                    batch=TRAIN_BATCH, steps=steps, mesh_loss=losses,
+                    mesh_step_ms=runs["mesh"]["step_ms"],
+                    plain_step_ms=runs["plain"]["step_ms"],
+                    mesh_step_ms_median=med["mesh"],
+                    plain_step_ms_median=med["plain"],
+                    mesh_minus_plain_ms=med["mesh"] - med["plain"])))
+                world_one = runs["mesh"]
+            del runs
+            free_device_memory()
+
+        cfg = gpt2.gpt2_124m()
+        pipe = pipeline_and_sequential(
+            cfg, synthetic_batch(cfg, TRAIN_BATCH, seed=0), "cuda",
+            PIPELINE_STAGES, PIPELINE_MICROBATCHES)
+        expected = cfg.n_layer * PIPELINE_MICROBATCHES
+        log("[pipeline] " + json.dumps(dict(
+            card=card, model="gpt2_124m", batch=TRAIN_BATCH,
+            stages=PIPELINE_STAGES, microbatches=PIPELINE_MICROBATCHES,
+            expected_launches=expected, **pipe)))
+        if pipe["launches"] != {"flash_fwd": expected, "flash_bwd": expected}:
+            fail(f"pipeline launched {pipe['launches']}, expected {expected} each")
+        if not (abs(pipe["loss"] - pipe["sequential_loss"]) <= LOSS_TOL
+                and pipe["worst_grad_rel_err"] <= GRAD_PATH_REL_TOL):
+            fail(f"pipeline disagrees with the sequential blocks: {pipe}")
+        launches["pipeline"] = pipe["launches"]
+        free_device_memory()
+        multi_card(card, world_one)
+    finally:
+        torch.distributed.destroy_process_group()
+    free_device_memory()
+    return launches
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1378,6 +1777,8 @@ def main() -> int:
                            replace(moe_cfg, remat=False), TRAIN_BATCH,
                            COMPARE_BATCH, MOE_GRAD_PATH_REL_TOL, MOE_LOSS_TOL)
 
+    par = parallel_phase(card)
+
     def numbers(row, launches):
         """One path's numbers for a kernel: its launches on that path beside
         the case run at that path's shape."""
@@ -1395,11 +1796,19 @@ def main() -> int:
         "llama_train": numbers(bwd["fwd_llama_train"], llama_train["flash_fwd"]),
         "moe_serve": numbers(fwd["main"], moe_serve),
         "moe_train": numbers(bwd["fwd_main"], moe_train["flash_fwd"]),
+        "parallel_train": numbers(bwd["fwd_main"], par["parallel"]["flash_fwd"]),
+        "parallel_moe_train": numbers(bwd["fwd_main"],
+                                      par["parallel-moe"]["flash_fwd"]),
+        "pipeline": numbers(bwd["fwd_pipeline"], par["pipeline"]["flash_fwd"]),
     }
     bwd_paths = {
         "train": numbers(bwd["main"], train["flash_bwd"]),
         "llama_train": numbers(bwd["llama_train"], llama_train["flash_bwd"]),
         "moe_train": numbers(bwd["main"], moe_train["flash_bwd"]),
+        "parallel_train": numbers(bwd["main"], par["parallel"]["flash_bwd"]),
+        "parallel_moe_train": numbers(bwd["main"],
+                                      par["parallel-moe"]["flash_bwd"]),
+        "pipeline": numbers(bwd["pipeline"], par["pipeline"]["flash_bwd"]),
     }
     log(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",

@@ -10,8 +10,8 @@ Attention (`attention_impl`):
   for a CUDA input, its plain version for a CPU input;
 - "xla": the plain einsum path of the JAX model (bf16 logits, masked with
   finfo(dtype).min, f32 softmax);
-- "ring" raises NotImplementedError: ring attention comes with the
-  multi-GPU slice.
+- "ring" raises NotImplementedError: ring attention over a cp process
+  group comes with the context-parallel slice, after tensor parallelism.
 
 Training: `loss_fn` is the mean next-token cross-entropy, through the
 fused `ops.cross_entropy.softmax_xent` or, with `loss_chunk`, chunk by
@@ -26,8 +26,14 @@ experts with top-k routing; the blocks carry (x, aux) and the summed
 load-balancing loss joins `loss_fn` as moe_aux_coeff · aux. The expert
 parameters sit under blocks["moe"], stacked [L, E, ...].
 
-Not ported yet: pipeline parallelism (the port has no device mesh; the
-JAX model refuses it with MoE too) and the ep mesh axis, in a later slice.
+Over a device mesh (parallel/mesh.py, entered by the train step):
+`logical_axes` names each parameter's dims for the sharding rules; the
+MoE layer holds E/ep experts a rank and counts capacity over the global
+batch; with pp > 1 the blocks run as a GPipe pipeline over the pp group
+(parallel/pipeline.py), each rank holding its stage's layers, and only the
+last stage computes the head and the loss (MoE blocks are refused with pp,
+as the JAX model refuses them).
+
 `scan_layers` and the `attn_*block*` fields are kept for parity and have
 no effect here: the forward runs eagerly, layer by layer, and the kernels'
 tiles are fixed.
@@ -49,7 +55,11 @@ from ray_tpu_torch.models.common import (  # params_from_jax: a JAX tree → tor
 )
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.cross_entropy import softmax_xent
-from ray_tpu_torch.ops.moe import moe_init, moe_mlp, moe_param_shapes
+from ray_tpu_torch.ops.moe import (
+    moe_init, moe_logical_axes, moe_mlp, moe_param_shapes,
+)
+from ray_tpu_torch.parallel.mesh import axis_size, current_mesh
+from ray_tpu_torch.parallel.pipeline import pipeline_apply, stages_from_layers
 
 
 @dataclass(frozen=True)
@@ -142,6 +152,36 @@ def gpt2_tiny(**overrides) -> GPT2Config:
 # --------------------------------------------------------------------------- #
 # Parameters
 # --------------------------------------------------------------------------- #
+
+def logical_axes(cfg: GPT2Config) -> Dict[str, Any]:
+    """Each parameter's logical axis names (the tree of `init`), as the JAX
+    model's: the sharding rules map them to mesh axes."""
+    blocks = {
+        "ln1_scale": ("layers", "embed"),
+        "ln1_bias": ("layers", "embed"),
+        "qkv_w": ("layers", "embed", None, "heads", "kv"),
+        "qkv_b": ("layers", None, "heads", "kv"),
+        "proj_w": ("layers", "heads", "kv", "embed"),
+        "proj_b": ("layers", "embed"),
+        "ln2_scale": ("layers", "embed"),
+        "ln2_bias": ("layers", "embed"),
+        "fc_w": ("layers", "embed", "mlp"),
+        "fc_b": ("layers", "mlp"),
+        "out_w": ("layers", "mlp", "embed"),
+        "out_b": ("layers", "embed"),
+    }
+    if cfg.moe_experts > 0:
+        for key in ("fc_w", "fc_b", "out_w", "out_b"):
+            del blocks[key]
+        blocks["moe"] = moe_logical_axes()
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "blocks": blocks,
+        "lnf_scale": ("embed",),
+        "lnf_bias": ("embed",),
+    }
+
 
 def _param_shapes(cfg: GPT2Config) -> Dict[str, Any]:
     D, H, hd, Fd, L = cfg.d_model, cfg.n_head, cfg.head_dim, cfg.d_ff, cfg.n_layer
@@ -242,8 +282,8 @@ def _attention(q, k, v, cfg: GPT2Config):
     impl = cfg.attention_impl
     if impl == "ring":
         raise NotImplementedError(
-            "attention_impl='ring' needs ring attention over a process group, "
-            "which comes with the multi-GPU slice"
+            "attention_impl='ring' needs ring attention over a cp process "
+            "group, which comes with the context-parallel slice"
         )
     if impl in ("auto", "pallas"):
         return flash_attention(q, k, v, causal=True, layout="bhsd")
@@ -277,16 +317,57 @@ def _block(x, p: Dict[str, Any], cfg: GPT2Config):
     return x + h @ p["out_w"].to(dt) + p["out_b"].to(dt)
 
 
+def _pipeline_stages(mesh) -> int:
+    return 1 if mesh is None else axis_size(mesh, ("pp",))
+
+
+def _last_stage(mesh) -> bool:
+    """Whether this rank holds the model's head: always, unless it runs an
+    earlier stage of a pipeline."""
+    pp = _pipeline_stages(mesh)
+    return pp == 1 or mesh.get_local_rank("pp") == pp - 1
+
+
+def _blocks_pipelined(blocks, x, cfg: GPT2Config, mesh, pp: int):
+    """The layer stack as a pp-stage GPipe pipeline over the mesh's pp
+    group: `blocks` holds this rank's stage, L/pp layers."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "pipeline parallelism with MoE blocks is not supported yet "
+            "(the aux-loss carry needs threading through the schedule); "
+            "use a pp=1 mesh for MoE configs"
+        )
+    if cfg.n_layer % pp:
+        raise ValueError(f"n_layer={cfg.n_layer} not divisible by pp={pp}")
+    M = cfg.pipeline_microbatches or pp
+
+    def stage_fn(stage, h):
+        for layer in layers(stage):
+            h = run_block(_block, cfg.remat, h, layer, cfg)
+        return h
+
+    return pipeline_apply(
+        stage_fn, stages_from_layers(blocks, 1), x, num_stages=pp,
+        num_microbatches=M, group=mesh.get_group("pp"),
+    )
+
+
 def _trunk(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config):
     """tokens [B, S] int → (final hidden states [B, S, D] in the compute
     dtype, the MoE load-balancing loss summed over layers: f32, 0 when
-    dense)."""
+    dense). Under a mesh with pp > 1 the hidden states hold only on the
+    pipeline's last stage."""
     wte = params["wte"]
     tokens = torch.as_tensor(tokens, device=wte.device).long()
     S = tokens.shape[1]
     dt = cfg.dtype
     x = wte.to(dt)[tokens] + params["wpe"][:S].to(dt)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    mesh = current_mesh()
+    pp = _pipeline_stages(mesh)
+    if pp > 1:
+        x = _blocks_pipelined(params["blocks"], x, cfg, mesh, pp)
+        return _layernorm(x, params["lnf_scale"], params["lnf_bias"]), aux
     if cfg.moe_experts > 0:
         x = (x, aux)    # thread the aux loss through the layers
     for layer in layers(params["blocks"]):
@@ -304,44 +385,56 @@ def forward(params: Dict[str, Any], tokens, cfg: GPT2Config) -> torch.Tensor:
 
 
 def _chunk_nll(x_c, targets_c, wte):
-    """[B, c, D] hidden + [B, c] targets → (sum nll, count) for the chunk."""
+    """[B, c, D] hidden + [B, c] targets → sum nll for the chunk."""
     logits = (x_c @ wte.T).float()
     logp = torch.log_softmax(logits, dim=-1)
     mask = targets_c >= 0
     safe = torch.where(mask, targets_c, torch.zeros_like(targets_c))
     nll = -logp.gather(-1, safe[..., None])[..., 0]
-    return (nll * mask).sum(), mask.sum()
+    return (nll * mask).sum()
 
 
-def loss_fn(
-    params: Dict[str, Any], tokens, targets, cfg: GPT2Config,
-) -> torch.Tensor:
-    """Mean next-token cross-entropy plus moe_aux_coeff times the MoE
-    load-balancing loss (0 when dense), f32 scalar. targets [B, S] int
-    (-1 = ignore).
+def loss_terms(params: Dict[str, Any], tokens, targets, cfg: GPT2Config):
+    """(Σ nll over the targets >= 0, f32; moe_aux_coeff · the MoE
+    load-balancing loss, 0 when dense): `loss_fn` before its division by
+    the count, which a meshed train step takes over the global batch.
+    targets [B, S] int (-1 = ignore).
 
     With loss_chunk = 0 (or one that does not divide S, or equals it) the
     LM head's logits go through the fused `softmax_xent`, whose backward
     keeps only the bf16 logits and a [B, S] lse. Otherwise the sequence is
     cut into chunks, each chunk's logits built, reduced to a scalar and
     rebuilt in the backward (torch.utils.checkpoint): the full [B, S, V]
-    logits never exist at once. Same math, f32 softmax, in both."""
+    logits never exist at once. Same math, f32 softmax, in both.
+
+    On an earlier stage of a pipeline the head is not computed: the sum is
+    a 0 that carries the stage's outputs into the backward."""
     x, moe_aux = _trunk(params, tokens, cfg)
     aux_term = cfg.moe_aux_coeff * moe_aux
+    if not _last_stage(current_mesh()):
+        return x.float().mul(0).sum(), aux_term
     S = x.shape[1]
     targets = torch.as_tensor(targets, device=x.device).long()
     wte = params["wte"].to(cfg.dtype)
     chunk = cfg.loss_chunk or 0
     if chunk <= 0 or S % chunk or S == chunk:
-        nll = softmax_xent(x @ wte.T, targets)
-        count = (targets >= 0).sum()
-        return nll.sum() / count.clamp(min=1) + aux_term
+        return softmax_xent(x @ wte.T, targets).sum(), aux_term
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    count = torch.zeros((), dtype=torch.long, device=x.device)
     for i in range(0, S, chunk):
-        s, c = checkpoint(_chunk_nll, x[:, i:i + chunk],
-                          targets[:, i:i + chunk], wte, use_reentrant=False)
-        total, count = total + s, count + c
+        s = checkpoint(_chunk_nll, x[:, i:i + chunk], targets[:, i:i + chunk],
+                       wte, use_reentrant=False)
+        total = total + s
+    return total, aux_term
+
+
+def loss_fn(
+    params: Dict[str, Any], tokens, targets, cfg: GPT2Config,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy plus moe_aux_coeff times the MoE
+    load-balancing loss (0 when dense), f32 scalar: `loss_terms`' sum over
+    the count of targets >= 0."""
+    total, aux_term = loss_terms(params, tokens, targets, cfg)
+    count = (torch.as_tensor(targets, device=total.device) >= 0).sum()
     return total / count.clamp(min=1) + aux_term
 
 

@@ -110,8 +110,8 @@ def llama_7b(**overrides) -> LlamaConfig:
 # --------------------------------------------------------------------------- #
 
 def logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
-    """Each parameter's logical axis names, as the JAX model's (for the
-    sharding rules of the multi-GPU slice)."""
+    """Each parameter's logical axis names, as the JAX model's: the
+    sharding rules (parallel/sharding.py) map them to mesh axes."""
     blocks = {
         "attn_norm": ("layers", "embed"),
         "wq": ("layers", "embed", "heads", "kv"),
@@ -268,15 +268,23 @@ def forward(params: Dict[str, Any], tokens, cfg: LlamaConfig) -> torch.Tensor:
     return x @ params["lm_head"].to(cfg.dtype)
 
 
+def loss_terms(params: Dict[str, Any], tokens, targets, cfg: LlamaConfig):
+    """(Σ nll over the targets >= 0, f32, through the fused softmax_xent on
+    the full logits; 0, the model having no auxiliary loss): `loss_fn`
+    before its division by the count, which a meshed train step takes over
+    the global batch."""
+    logits = forward(params, tokens, cfg)
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    return softmax_xent(logits, targets).sum(), 0.0
+
+
 def loss_fn(
     params: Dict[str, Any], tokens, targets, cfg: LlamaConfig,
 ) -> torch.Tensor:
-    """Mean next-token cross-entropy over targets >= 0, f32 scalar, through
-    the fused softmax_xent on the full logits."""
-    logits = forward(params, tokens, cfg)
-    targets = torch.as_tensor(targets, device=logits.device).long()
-    nll = softmax_xent(logits, targets)
-    return nll.sum() / (targets >= 0).sum().clamp(min=1)
+    """Mean next-token cross-entropy over targets >= 0, f32 scalar."""
+    total, _ = loss_terms(params, tokens, targets, cfg)
+    targets = torch.as_tensor(targets, device=total.device)
+    return total / (targets >= 0).sum().clamp(min=1)
 
 
 def flops_per_token(cfg: LlamaConfig) -> float:

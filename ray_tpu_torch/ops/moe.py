@@ -32,7 +32,21 @@ and chip_smoke.py hold `moe_mlp` against it, and nothing in the models or
 the training step calls it. No kernel is written by hand here: the
 reference has no Pallas kernel in this layer, and its expert products are
 plain batched matrix products (torch.bmm here, as XLA's dots there).
-`moe_logical_axes` (the ep mesh sharding) comes with the multi-GPU slice.
+
+Under a device mesh (parallel/mesh.py's `current_mesh`, which the train
+step enters) the layer still computes the reference's function of the
+GLOBAL batch, whose rows are split over (dp, fsdp):
+- the capacity counts every rank's tokens, and each choice's place in its
+  expert's queue counts the choices of the ranks before it in the global
+  k-major order (an all-gather of [k, E] counts over the batch axes);
+- the load-balancing loss is E · Σ_e (global top-1 share) · (global mean
+  probability): a product of global means;
+- with ep > 1 a rank holds E/ep experts (`moe_logical_axes` puts the
+  expert dim on ep). The ranks of an ep group hold the same tokens, so
+  each runs its experts on its dispatch slots and the combined outputs are
+  summed over the group: no all-to-all, as in the reference's layout;
+- a rank's buffer holds min(C, T) slots an expert (T its own tokens):
+  only its tokens fill them.
 """
 
 from __future__ import annotations
@@ -42,6 +56,11 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ray_tpu_torch.parallel.mesh import (
+    BATCH_AXES, all_gather, all_reduce, axis_index, axis_size, copy_over,
+    current_mesh, sum_over,
+)
 
 
 def moe_capacity(num_tokens: int, num_experts: int, top_k: int,
@@ -84,6 +103,18 @@ def moe_init(generator: torch.Generator, num_layers: int, d_model: int,
 
     shapes = moe_param_shapes(num_layers, d_model, d_ff, num_experts)
     return {k: make(k, s) for k, s in shapes.items()}
+
+
+def moe_logical_axes() -> Dict[str, Any]:
+    """Logical axes of one layer-stacked MoE parameter tree: the `expert`
+    axis maps to the mesh's ep dimension (parallel/sharding.py)."""
+    return {
+        "router_w": ("layers", "embed", None),
+        "fc_w": ("layers", "expert", "embed", "mlp"),
+        "fc_b": ("layers", "expert", "mlp"),
+        "out_w": ("layers", "expert", "mlp", "embed"),
+        "out_b": ("layers", "expert", "embed"),
+    }
 
 
 class Routing(NamedTuple):
@@ -141,27 +172,67 @@ def _aux_loss(probs: torch.Tensor, first_choice: torch.Tensor) -> torch.Tensor:
     return E * (top1.mean(0) * probs.mean(0)).sum()
 
 
+def _global_queue(r: Routing, capacity: int, mesh) -> Routing:
+    """`r`, a routing of this rank's tokens with places counted among them,
+    with each place moved behind the choices of the same expert that come
+    earlier in the global k-major order: all choices j' < j of every rank,
+    and choice j of the ranks before this one on the batch axes."""
+    k, E = r.expert.shape[1], r.probs.shape[-1]
+    counts = torch.zeros(k, E, dtype=torch.long, device=r.expert.device)
+    counts.scatter_add_(1, r.expert.t(), torch.ones_like(r.expert.t()))
+    every = all_gather(counts, mesh, BATCH_AXES)              # [ranks, k, E]
+    others = every.sum(0) - counts
+    offset = (every[:axis_index(mesh, BATCH_AXES)].sum(0)
+              + others.cumsum(0) - others)                    # [k, E]
+    pos = r.pos + offset.gather(1, r.expert.t()).t()
+    return Routing(r.probs, r.gate, r.expert, pos, pos < capacity)
+
+
+def _global_aux_loss(probs: torch.Tensor, first_choice: torch.Tensor,
+                     num_tokens: int, mesh) -> torch.Tensor:
+    """`_aux_loss` over the global batch: each factor is a mean over every
+    rank's tokens, the probabilities' differentiably (sum_over)."""
+    E = probs.shape[-1]
+    top1 = (first_choice[:, None] == torch.arange(E, device=probs.device)).float()
+    frac_tokens = all_reduce(top1.sum(0), mesh, BATCH_AXES) / num_tokens
+    frac_probs = sum_over(probs.sum(0), mesh, BATCH_AXES) / num_tokens
+    return E * (frac_tokens * frac_probs).sum()
+
+
 def moe_mlp(x: torch.Tensor, params: Dict[str, Any], *, top_k: int,
             capacity_factor: float = 1.25, dtype=torch.bfloat16):
     """x: [B, S, D] → ([B, S, D] in dtype, aux_loss f32 scalar).
 
     params hold ONE layer's tensors (no leading L): router_w [D, E],
-    fc_w [E, D, F], fc_b [E, F], out_w [E, F, D], out_b [E, D]. The
-    reference's function, dispatched by index (module docstring)."""
+    fc_w [E, D, F], fc_b [E, F], out_w [E, F, D], out_b [E, D] (under a
+    mesh: E/ep experts, this rank's). The reference's function, dispatched
+    by index (module docstring)."""
     B, S, D = x.shape
     T = B * S
     E = params["router_w"].shape[-1]
-    C = moe_capacity(T, E, top_k, capacity_factor)
+    mesh = current_mesh()
+    tokens = T if mesh is None else T * axis_size(mesh, BATCH_AXES)
+    C = moe_capacity(tokens, E, top_k, capacity_factor)
     xt = x.reshape(T, D)
     r = route(xt, params["router_w"], top_k, C)
+    local_pos = r.pos                  # place among this rank's tokens
+    E_here, slots, first, gate = E, C, 0, r.gate
+    if mesh is not None:
+        r = _global_queue(r, C, mesh)
+        E_here, slots = params["fc_w"].shape[0], min(C, T)
+        first = mesh.get_local_rank("ep") * E_here
+        # each ep rank uses these for its own experts' share of y
+        xt, gate = copy_over(xt, mesh, ("ep",)), copy_over(r.gate, mesh, ("ep",))
+    here = r.keep & (r.expert >= first) & (r.expert < first + E_here)
+    rows_here = E_here * slots
 
     # [T, k] slot of each choice in the flat [E·C] buffer
-    slot = r.expert * C + r.pos
+    slot = (r.expert - first) * slots + local_pos
     # dispatch: a kept choice to its own slot, a dropped one to row E·C
-    dest = torch.where(r.keep, slot, E * C).reshape(-1)
+    dest = torch.where(here, slot, rows_here).reshape(-1)
     src = xt.to(dtype).unsqueeze(1).expand(T, top_k, D).reshape(T * top_k, D)
-    buf = torch.zeros(E * C + 1, D, dtype=dtype, device=x.device)
-    xin = buf.index_copy(0, dest, src)[:E * C].view(E, C, D)
+    buf = torch.zeros(rows_here + 1, D, dtype=dtype, device=x.device)
+    xin = buf.index_copy(0, dest, src)[:rows_here].view(E_here, slots, D)
 
     h = torch.bmm(xin, params["fc_w"].to(dtype)) + params["fc_b"].to(dtype)[:, None, :]
     h = F.gelu(h, approximate="tanh")
@@ -171,14 +242,17 @@ def moe_mlp(x: torch.Tensor, params: Dict[str, Any], *, top_k: int,
     # summed in f32. A dropped choice reads some row at weight 0, each its
     # own (i mod E·C): its gradient adds an exact 0 there, and no row
     # collects many of them (the backward sums each row's entries serially)
-    spread = torch.arange(T * top_k, device=x.device).view(T, top_k) % (E * C)
-    rows = out.view(E * C, D)[torch.where(r.keep, slot, spread).reshape(-1)]
-    weight = (r.gate * r.keep).to(dtype).float()
+    spread = torch.arange(T * top_k, device=x.device).view(T, top_k) % rows_here
+    rows = out.view(rows_here, D)[torch.where(here, slot, spread).reshape(-1)]
+    weight = (gate * here).to(dtype).float()
     # bf16 products are exact in f32: one rounding, as the reference's
     # einsum (a batched product over k instead falls to slow cuBLAS kernels
     # for so many 1 x k x D problems)
-    y = (rows.view(T, top_k, D).float() * weight[..., None]).sum(1).to(dtype)
-    return y.view(B, S, D), _aux_loss(r.probs, r.expert[:, 0])
+    y = (rows.view(T, top_k, D).float() * weight[..., None]).sum(1)
+    if mesh is None:
+        return y.to(dtype).view(B, S, D), _aux_loss(r.probs, r.expert[:, 0])
+    y = sum_over(y, mesh, ("ep",)).to(dtype)
+    return y.view(B, S, D), _global_aux_loss(r.probs, r.expert[:, 0], tokens, mesh)
 
 
 def route_plain(xt: torch.Tensor, router_w: torch.Tensor, top_k: int,

@@ -1,22 +1,46 @@
-"""Training step of the PyTorch port, on one device.
+"""Training step of the PyTorch port, on one device or over a device mesh.
 
 Counterpart of ray_tpu/train/train_step.py: `default_optimizer`,
-`make_gpt2_train_step`, `make_llama_train_step` and `synthetic_batch`. The JAX step is one jitted
-function over a mesh with donated buffers; here the step runs eagerly on
-one device and updates the parameters and the optimizer's moments in place.
-Meshes and shardings come with the multi-GPU slice.
+`make_gpt2_train_step`, `make_llama_train_step` and `synthetic_batch`. The
+JAX step is one jitted function over a mesh with donated buffers; here the
+step runs eagerly and updates the parameters and the optimizer's moments in
+place.
+
+With `mesh` (parallel/mesh.py: dp, fsdp, ep and pp; tp and cp are refused)
+the step is still the reference's function of the GLOBAL batch, and every
+rank takes its rows of it. Each parameter lives as a DTensor whose
+placements come from the model's `logical_axes` and the rule table
+(parallel/sharding.py); its local shard is what the optimizer updates, and
+the moments follow it. A step gathers each shard over the batch axes that
+shard it, runs the forward and backward on this rank's rows with the loss
+divided by the global count of targets, then sums each gradient over the
+ranks whose contributions are disjoint: the batch axes (reduce-scattered
+back to the shard where they shard it) and, for a parameter every pipeline
+stage holds, pp (the first stage's embedding plus the last stage's head).
+Never over ep: the ranks of an ep group compute the same loss, and the MoE
+layer's collectives hand each the whole gradient. The clipping norm counts
+every element once. A mesh of one device runs the same code, with its
+collectives on groups of one.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import (
+    Any, Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional, Tuple,
+)
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch.models import gpt2, llama
+from ray_tpu_torch.parallel.mesh import (
+    AXIS_ORDER, BATCH_AXES, all_reduce, axis_size, local_batch, mesh_spec,
+    use_mesh,
+)
+from ray_tpu_torch.parallel.sharding import shard_tree
 
 _f32 = np.float32
 
@@ -57,7 +81,8 @@ class ClippedAdamW(torch.optim.Optimizer):
     so the first update has lr = schedule(0) (0 under warmup from 0) while
     Adam's bias correction already counts it as step 1. After each step,
     `grad_norm` holds the global norm of the gradients before clipping (a
-    0-d f32 tensor on the parameters' device)."""
+    0-d f32 tensor on the parameters' device). A meshed step, whose
+    parameters are shards, hands `step` the global norm."""
 
     def __init__(
         self, params: Iterable[torch.Tensor], schedule: Callable[[int], float],
@@ -76,13 +101,15 @@ class ClippedAdamW(torch.optim.Optimizer):
         self.grad_norm: Optional[torch.Tensor] = None
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
+        """One update; the clip uses `grad_norm` when given, else the norm
+        of this optimizer's gradients."""
         group = self.param_groups[0]
         b1, b2, eps = group["b1"], group["b2"], group["eps"]
         params = [p for p in group["params"] if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(p.grad, dtype=torch.float32) for p in params]
-        ))
+        norm = grad_norm if grad_norm is not None else torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(p.grad, dtype=torch.float32)
+                         for p in params]))
         keep = norm < group["grad_clip"]
         count = self.count + 1
         bc1 = float(_f32(1) - _f32(b1) ** _f32(count))
@@ -135,6 +162,14 @@ class TrainStepBundle:
     # of batches {"tokens": [N, B, S], "targets": [N, B, S]}: step_fn in a
     # loop, with the same results
     multi_step_fn: Callable
+    mesh: Any = None               # the DeviceMesh, None on one device
+    # a global batch → this rank's rows (what step_fn takes of it); None on
+    # one device
+    local_batch: Optional[Callable] = None
+    # the rule updates the parameters were placed with (a pipelined plan's
+    # layers → pp among them): shard_tree(mesh, tree, logical_axes, rules)
+    # places a full tree as the state holds it
+    rules: Optional[Dict] = None
 
 
 def named_leaves(params: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
@@ -152,15 +187,44 @@ def param_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
     return [v for _, v in named_leaves(params)]
 
 
-def _make_train_step(model, cfg, optimizer, generator, device) -> TrainStepBundle:
-    """Initialize `model` (a module with `init` and `loss_fn`, e.g.
-    models.gpt2) on `device` and build its train step: forward, backward
-    (the flash kernels on a CUDA device), then the optimizer.
+def _unflatten(names: List[str], values: List[Any]) -> Dict[str, Any]:
+    """The nested dict whose named_leaves are zip(names, values)."""
+    tree: Dict[str, Any] = {}
+    for name, v in zip(names, values):
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def _multi_step(step_fn):
+    def multi_step_fn(state, batches):
+        metrics = []
+        for i in range(len(batches["tokens"])):
+            state, m = step_fn(state, {k: v[i] for k, v in batches.items()})
+            metrics.append(m)
+        return state, {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+    return multi_step_fn
+
+
+def _make_train_step(model, cfg, optimizer, generator, device, mesh=None,
+                     rules=None) -> TrainStepBundle:
+    """Initialize `model` (a module with `init`, `loss_fn`, `loss_terms`
+    and `logical_axes`, e.g. models.gpt2) on `device` and build its train
+    step: forward, backward (the flash kernels on a CUDA device), then the
+    optimizer; over `mesh` when one is given (module docstring).
 
     `optimizer` is a factory such as `default_optimizer()` returns (the
     default). `step_fn(state, batch)` updates state["params"] and the
     optimizer in place and returns (state, {"loss", "grad_norm"}), 0-d
-    tensors on the device (reading them synchronizes)."""
+    tensors on the device (reading them synchronizes), the same on every
+    rank of a mesh."""
+    if mesh is not None:
+        return _make_mesh_train_step(model, cfg, optimizer, generator,
+                                     device, mesh, rules)
     device = torch.device(device)
     if optimizer is None:
         optimizer = default_optimizer()
@@ -184,15 +248,146 @@ def _make_train_step(model, cfg, optimizer, generator, device) -> TrainStepBundl
         state["step"] += 1
         return state, {"loss": loss.detach(), "grad_norm": opt.grad_norm}
 
-    def multi_step_fn(state, batches):
-        metrics = []
-        for i in range(len(batches["tokens"])):
-            state, m = step_fn(state, {k: v[i] for k, v in batches.items()})
-            metrics.append(m)
-        return state, {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
-
     return TrainStepBundle(state=state, step_fn=step_fn, cfg=cfg,
-                           multi_step_fn=multi_step_fn)
+                           multi_step_fn=_multi_step(step_fn))
+
+
+def _mesh_rules(model, cfg, mesh, rules):
+    """The reference's checks of a mesh plan (ray_tpu/train/train_step.py),
+    and the refusal of what is not ported yet; returns the rules, with the
+    layer stack on pp for a pipelined plan."""
+    spec = mesh_spec(mesh)
+    if spec.tp > 1 or spec.cp > 1:
+        raise NotImplementedError(
+            f"tp={spec.tp}, cp={spec.cp}: tensor parallelism and context "
+            "parallelism (ring attention) are not ported yet; they come with "
+            "the tensor-parallel slice and the ring-attention slice after it"
+        )
+    if spec.pp > 1:
+        if model is not gpt2:
+            raise NotImplementedError(
+                "pipeline parallelism is ported for GPT-2 only")
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "pipeline parallelism with MoE blocks is not supported yet; "
+                "use a pp=1 mesh for MoE configs"
+            )
+        if cfg.n_layer % spec.pp:
+            raise ValueError(
+                f"n_layer={cfg.n_layer} not divisible by pp={spec.pp}")
+        rules = {"layers": "pp", **(rules or {})}
+    return rules
+
+
+class _LeafPlan(NamedTuple):
+    """How a meshed step moves one parameter and its gradient."""
+
+    # (batch axis, dim) pairs that shard it, in mesh order: its shard is
+    # gathered over them for the step, its gradient reduce-scattered back
+    gather: List[Tuple[str, int]]
+    summed: Tuple[str, ...]     # the other axes its gradient is summed over
+    # ep, where it is replicated: every ep rank computes the same gradient,
+    # but kernels that accumulate in a run-dependent order (the embedding's
+    # backward) round it differently, so ep rank 0's is handed to the others
+    # and the replicas never drift apart
+    copied: Tuple[str, ...]
+    sharded: Tuple[str, ...]    # every axis that shards it (for the norm)
+
+
+def _leaf_plan(placements) -> _LeafPlan:
+    from torch.distributed.tensor import Shard
+
+    shard = {a: p.dim for a, p in zip(AXIS_ORDER, placements)
+             if isinstance(p, Shard)}
+    return _LeafPlan(
+        gather=[(a, shard[a]) for a in BATCH_AXES if a in shard],
+        summed=tuple(a for a in BATCH_AXES + ("pp",) if a not in shard),
+        copied=() if "ep" in shard else ("ep",),
+        sharded=tuple(shard))
+
+
+def _broadcast(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """`t` of the first rank of each of `axes`, in place."""
+    for a in axes:
+        group = mesh.get_group(a)
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return t
+
+
+def _gather(t: torch.Tensor, gather, mesh) -> torch.Tensor:
+    for a, dim in reversed(gather):     # innermost first
+        parts = [torch.empty_like(t) for _ in range(axis_size(mesh, (a,)))]
+        dist.all_gather(parts, t.contiguous(), group=mesh.get_group(a))
+        t = torch.cat(parts, dim)
+    return t
+
+
+def _reduce_scatter(t: torch.Tensor, gather, mesh) -> torch.Tensor:
+    for a, dim in gather:               # outermost first
+        chunks = [c.contiguous() for c in t.chunk(axis_size(mesh, (a,)), dim)]
+        t = torch.empty_like(chunks[0])
+        dist.reduce_scatter(t, chunks, group=mesh.get_group(a))
+    return t
+
+
+def _grad_norm(grads, plans, mesh) -> torch.Tensor:
+    """The global norm: each leaf's squares summed over the ranks that hold
+    its disjoint shards, once per element (replicas are not counted)."""
+    sums: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for g, plan in zip(grads, plans):
+        sq = g.float().square().sum()
+        key = plan.sharded
+        sums[key] = sums[key] + sq if key in sums else sq
+    return sum(all_reduce(sq, mesh, axes) for axes, sq in sums.items()).sqrt()
+
+
+def _make_mesh_train_step(model, cfg, optimizer, generator, device, mesh,
+                          rules) -> TrainStepBundle:
+    rules = _mesh_rules(model, cfg, mesh, rules)
+    device = torch.device(device)
+    if optimizer is None:
+        optimizer = default_optimizer()
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    # every rank draws the full tree from the same seed; rank 0's is placed
+    params = shard_tree(mesh, model.init(cfg, generator, device=device),
+                        model.logical_axes(cfg), rules)
+    names = [n for n, _ in named_leaves(params)]
+    with torch.no_grad():       # the DTensors' own local tensors
+        shards = [d.to_local() for d in param_leaves(params)]
+    for p in shards:
+        p.requires_grad_(True)
+    plans = [_leaf_plan(d.placements) for d in param_leaves(params)]
+    state = {"params": params, "opt_state": optimizer(shards), "step": 0}
+
+    def step_fn(state, batch):
+        opt = state["opt_state"]
+        opt.zero_grad(set_to_none=True)
+        rows = local_batch(mesh, batch)
+        tokens = torch.as_tensor(rows["tokens"], device=device)
+        targets = torch.as_tensor(rows["targets"], device=device)
+        count = all_reduce((targets >= 0).sum(), mesh, BATCH_AXES).clamp(min=1)
+        work = [_gather(p.detach(), plan.gather, mesh).requires_grad_(True)
+                for p, plan in zip(shards, plans)]
+        with use_mesh(mesh):
+            total, aux_term = model.loss_terms(
+                _unflatten(names, work), tokens, targets, cfg)
+            (total / count + aux_term).backward()
+        for p, w, plan in zip(shards, work, plans):
+            g = w.grad if w.grad is not None else torch.zeros_like(w)
+            g = all_reduce(_reduce_scatter(g, plan.gather, mesh), mesh, plan.summed)
+            p.grad = _broadcast(g, mesh, plan.copied)
+        norm = _grad_norm([p.grad for p in shards], plans, mesh)
+        opt.step(grad_norm=norm)
+        state["step"] += 1
+        total = all_reduce(total.detach().clone(), mesh, BATCH_AXES + ("pp",))
+        aux = aux_term.detach() if torch.is_tensor(aux_term) else aux_term
+        return state, {"loss": total / count + aux, "grad_norm": norm}
+
+    return TrainStepBundle(
+        state=state, step_fn=step_fn, cfg=cfg,
+        multi_step_fn=_multi_step(step_fn), mesh=mesh,
+        local_batch=lambda batch: local_batch(mesh, batch), rules=rules)
 
 
 OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
@@ -203,10 +398,14 @@ def make_gpt2_train_step(
     optimizer: Optional[OptimizerFactory] = None,
     generator: Optional[torch.Generator] = None,
     device="cuda",
+    *,
+    mesh=None,
+    rules: Optional[Dict] = None,
 ) -> TrainStepBundle:
-    """GPT-2 (models.gpt2) on `device` and its train step; see
+    """GPT-2 (models.gpt2) on `device` and its train step, over `mesh`
+    (with the rule table updated by `rules`) when one is given; see
     `_make_train_step`."""
-    return _make_train_step(gpt2, cfg, optimizer, generator, device)
+    return _make_train_step(gpt2, cfg, optimizer, generator, device, mesh, rules)
 
 
 def make_llama_train_step(
@@ -214,10 +413,13 @@ def make_llama_train_step(
     optimizer: Optional[OptimizerFactory] = None,
     generator: Optional[torch.Generator] = None,
     device="cuda",
+    *,
+    mesh=None,
+    rules: Optional[Dict] = None,
 ) -> TrainStepBundle:
-    """Llama (models.llama) on `device` and its train step; see
-    `_make_train_step`."""
-    return _make_train_step(llama, cfg, optimizer, generator, device)
+    """Llama (models.llama) on `device` and its train step, over `mesh`
+    when one is given; see `_make_train_step`."""
+    return _make_train_step(llama, cfg, optimizer, generator, device, mesh, rules)
 
 
 def synthetic_batch(cfg, global_batch: int, seed: int = 0):

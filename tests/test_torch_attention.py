@@ -155,13 +155,18 @@ def _imports(path):
 
 def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     """Nor transformers, which the GPU machine does not have: Llama's
-    params_from_hf takes a model the caller built."""
+    params_from_hf takes a model the caller built. The rank processes of
+    the multi-process tests (tests/torch_parallel_ranks.py) import no JAX
+    either."""
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_ranks.py"]
     assert len(files) > 5
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"ray_tpu_torch/models/llama.py", "ray_tpu_torch/ops/moe.py",
-            "ray_tpu_torch/train/train_step.py"} <= names
+            "ray_tpu_torch/train/train_step.py",
+            "ray_tpu_torch/parallel/mesh.py",
+            "ray_tpu_torch/parallel/sharding.py",
+            "ray_tpu_torch/parallel/pipeline.py"} <= names
     bad = [
         (str(f.relative_to(REPO)), name)
         for f in files for name in _imports(f)

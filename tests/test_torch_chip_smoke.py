@@ -194,3 +194,64 @@ def test_recorded_routing_sees_every_moe_layer(smoke):
     assert len(sink) == cfg.n_layer
     assert all(r.expert.shape == (128, 2) and r.keep.dtype == torch.bool
                for r in sink)
+
+
+@pytest.fixture(scope="module")
+def world_one(tmp_path_factory):
+    """A one-rank gloo process group in this process and its mesh, as the
+    [parallel] phase makes one over NCCL on the card."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+
+    path = tmp_path_factory.mktemp("rdzv") / "file"
+    mesh_lib.init_distributed("gloo", init_method=f"file://{path}", rank=0,
+                              world_size=1, timeout_s=60)
+    yield mesh_lib.make_mesh(mesh_lib.MeshSpec(), "cpu")
+    dist.destroy_process_group()
+
+
+def test_parallel_phase_holds_the_mesh_step_to_the_plain_step(smoke, world_one):
+    """train_run over the mesh and without it, at gpt2_tiny (f32) on the
+    CPU: check_mesh_against_plain accepts them, and rejects a mesh run
+    whose loss moved by 1e-5 or one of whose gradients doubled."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train.train_step import make_gpt2_train_step, synthetic_batch
+
+    cfg = gpt2.gpt2_tiny(dtype=torch.float32)
+    batch = synthetic_batch(cfg, 2, seed=0)
+    plain = smoke.train_run(make_gpt2_train_step, cfg, batch, "cpu", 2)
+    meshed = smoke.train_run(make_gpt2_train_step, cfg, batch, "cpu", 2, world_one)
+    assert len(meshed["step_ms"]) == 2 and meshed["loss"][-1] < meshed["first"]["loss"]
+    assert meshed["launches"] == {"flash_fwd": 0, "flash_bwd": 0}   # plain versions
+    errs = smoke.check_mesh_against_plain("test", plain, meshed)
+    assert errs["loss"] == 0 and errs["worst_grad_rel_err"] <= 1e-6
+    assert set(meshed["grads"]) == set(plain["grads"]) and len(plain["grads"]) == 16
+    moved = {**meshed, "first": {**meshed["first"],
+                                 "loss": meshed["first"]["loss"] * (1 + 1e-5)}}
+    doubled = {**meshed, "grads": {**meshed["grads"],
+                                   "wpe": 2 * meshed["grads"]["wpe"]}}
+    for bad in (moved, doubled):
+        with pytest.raises(SystemExit, match="mesh step disagrees"):
+            smoke.check_mesh_against_plain("test", plain, bad)
+
+
+def test_pipeline_check_on_the_cpu(smoke):
+    """pipeline_and_sequential at gpt2_tiny (f32): 2 stages of one layer, 4
+    microbatches of 4 rows, the same loss and gradients as the blocks one
+    after another; no kernel launches on the CPU."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train.train_step import synthetic_batch
+
+    cfg = gpt2.gpt2_tiny(dtype=torch.float32)
+    out = smoke.pipeline_and_sequential(cfg, synthetic_batch(cfg, 4), "cpu",
+                                        2, 4, repeats=1)
+    assert abs(out["loss"] - out["sequential_loss"]) <= 1e-6
+    assert out["worst_grad_rel_err"] <= 1e-5
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+    assert set(out["ms"]) == {"pipeline", "sequential"}
+
+
+def test_multi_card_run_says_when_it_did_not_take_place(smoke, capsys):
+    smoke.multi_card("no card", {})
+    assert "multi-card run: did not take place (one card" in capsys.readouterr().out
