@@ -8,8 +8,8 @@
                                        # every model path
     python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.multi_card_check())"
                                        # on 2-4 cards: only the multi-card
-                                       # fsdp run and the world-1 step it is
-                                       # held to
+                                       # runs (fsdp, tp) and the world-1
+                                       # steps they are held to
     python3 chip_smoke.py --compare-fwd OLD/flash_fwd.cu
     python3 chip_smoke.py --compare-bwd OLD/flash_bwd.cu
                                        # also time another design of a
@@ -26,7 +26,8 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    launch count. Any spill fails.
 2. Hold each kernel against its plain PyTorch version on the card, at every
    model path's shapes and at the edge cases, within the stated tolerances
-   (the backward also by mean error, which a moved rounding point fails),
+   (the backward also by mean error, which a moved rounding point fails;
+   a tp rank's shape among them: llama_1b's 16 of 32 heads over tp 2),
    and time the kernel, the plain version and one PyTorch library call that
    computes the same function (a yardstick the port never calls) with CUDA
    events, the forward wrapper's host time per call, and the backward's C
@@ -86,14 +87,24 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    limit, beside the plain step's own run-to-run spread (a second plain
    run: flash_bwd's dq order); 12 launches of each kernel a step on both
    paths; median step ms and peak memory of the mesh path beside the
-   plain path's. [pipeline] GPT-2-124M's 12 blocks as 4 stages of 3 through
+   plain path's. [parallel-tp] llama_1b at full width and depth, B 8 x
+   2048, through make_llama_train_step(mesh=...), 1 + 8 steps, held to the
+   plain step in the same way (each gradient within twice the plain
+   step's own spread there, 4e-2): the tensor-parallel code (column- and
+   row-parallel products, vocab-parallel embedding, head and
+   cross-entropy) on a tp group of one; 22 launches of each kernel a
+   step; the collectives over tp counted against tp_collectives_per_step
+   (on every mesh path; the plain path runs none); step ms, tokens/s and
+   peak memory of both paths. [pipeline] GPT-2-124M's 12 blocks as 4 stages of 3 through
    parallel.pipeline.pipeline_apply without a group, 4 microbatches of the
    B 24 batch, against the blocks one after another: loss and every
    gradient within the dense limits, 48 launches of each kernel (the live
    (layer, microbatch) pairs; the bubble is skipped), both timed. With 2
-   to 4 cards the phase also trains GPT-2-124M over fsdp on one NCCL rank
-   a card and holds it to the world-1 step; with one card it says that
-   run did not take place.
+   to 4 cards the phase also trains, one NCCL rank a card, GPT-2-124M over
+   fsdp on every card, llama_1b over tp 2 (tp 4 on four cards) and, on
+   four, GPT-2-124M over fsdp2·tp2 (multi_card_plans), each held to its
+   model's world-1 mesh step; with one card it says that run did not take
+   place.
 12. Print the kernels line (each kernel's numbers by model path), the card's
    name and power limit, and last the result line {"ok": true, ...}.
 
@@ -740,6 +751,35 @@ def backward_cases(gen):
     rows["llama_train"], _ = check(name, q, k, v, o, lse, do,
                                    library=sdpa_backward(q, k, v, do, True))
     del q, k, v, do, o, lse
+
+    def rank_case(key, shape, kv, what):
+        """Rows `key` and fwd_`key` at one rank's shape, its `kv` kv heads
+        repeated in place to H as the model repeats them."""
+        B, H, S, hd = shape
+        name = (f"causal B{B} H{H} S{S} hd{hd} ({what}, one rank; its {kv} "
+                f"kv heads repeated)")
+        q, k, v, do = rand(*shape)
+        k, v = (x[:, :kv].repeat_interleave(H // kv, dim=1).contiguous()
+                for x in (k, v))
+        rows[f"fwd_{key}"], o, lse = forward_case(name, q, k, v,
+                                                  library=sdpa(q, k, v, True))
+        rows[key], _ = check(name, q, k, v, o, lse, do,
+                             library=sdpa_backward(q, k, v, do, True))
+
+    # llama_1b over tp 2: 16 of the 32 heads, 4 of the 8 kv heads
+    rank_case("llama_tp2", (LLAMA_TRAIN_BATCH, 16, 2048, 64), 4, "llama_1b over tp 2")
+    # each multi-card run's rank (none on one card): rows rank_<plan> and
+    # fwd_rank_<plan> at its shape; a shape that ran above shares its rows
+    seen = {((LLAMA_TRAIN_BATCH, 16, 2048, 64), 4): "llama_tp2",
+            ((mb, 12, 1024, 64), 12): "pipeline"}
+    for plan in multi_card_plans(torch.cuda.device_count()):
+        shape, kv = rank_attention_shape(plan)
+        key = f"rank_{plan['name']}"
+        if (shape, kv) not in seen:
+            rank_case(key, shape, kv, f"{plan['config']} over {plan['mesh']}")
+            seen[(shape, kv)] = key
+        same = seen[(shape, kv)]
+        rows[f"fwd_{key}"], rows[key] = rows[f"fwd_{same}"], rows[same]
     q, k, v, do = rand(1, 32, 4096, 128)
     o, lse = forward(q, k, v)
     rows["llama_hd128"], _ = check(
@@ -1022,8 +1062,9 @@ def free_device_memory() -> None:
     """Between paths: free what the last one left, so that each path's peak
     memory is its own."""
     gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
 
 
 def serve_path(card: str, profile: bool, tag: str, name: str, model, cfg,
@@ -1148,6 +1189,7 @@ _CATEGORIES = (        # kernel name fragment -> category, first match wins
     ("gather", "indexing (MoE dispatch and combine, embedding lookup)"),
     ("scatter", "indexing (MoE dispatch and combine, embedding lookup)"),
     ("sort", "MoE routing (sort, scan)"), ("scan", "MoE routing (sort, scan)"),
+    ("nccl", "collectives (NCCL)"),
     ("reduce_kernel", "reductions"), ("copy", "copies and casts"),
     ("elementwise", "other elementwise"),
 )
@@ -1361,9 +1403,13 @@ def llama_hd128_gradients() -> None:
 # its leaf by O(1). (The parameters after Adam's first step are not
 # compared: it moves each weight by about lr·sign(g), so a near-zero
 # gradient whose sign the dq order flips moves its weight by 2·lr on
-# either path alike.)
+# either path alike.) llama_1b's 22 layers at B 8 x 2048 carry the dq
+# order further: two plain steps differ in some leaf by 1.7e-2 to 1.9e-2
+# of its max-abs (H100, two runs), the mesh path from the plain one by
+# 1.8e-2, so [parallel-tp] holds each gradient to twice that spread.
 MESH_LOSS_REL_TOL = 1e-6
 MESH_NORM_REL_TOL = 1e-3
+LLAMA_MESH_GRAD_REL_TOL = 4e-2
 MULTI_CARD_MAX = 4
 
 
@@ -1381,13 +1427,16 @@ def free_port() -> int:
 
 
 def train_run(make_train_step, cfg, batch, device, steps: int,
-              mesh=None) -> dict:
+              mesh=None, profile: str = "") -> dict:
     """make_train_step(cfg) on `device`, over `mesh` when given, from the
     parameters a generator seeded 0 draws, on one repeated batch: the
     first step's loss and grad norm and each parameter's gradient in it
     (this rank's shard), then `steps` more steps' losses, grad norms and
-    times (host clock around a synchronized step); the kernel launches of
-    all the steps (counts reset just before the first)."""
+    times (host clock around a synchronized step); the kernel launches
+    and the collectives by mesh axis of all the steps (counts reset just
+    before the first). With `profile`, then one more step's device time
+    by kernel under that name."""
+    from ray_tpu_torch.parallel.mesh import collectives
     from ray_tpu_torch.train.train_step import default_optimizer, named_leaves
 
     bundle = make_train_step(
@@ -1395,6 +1444,7 @@ def train_run(make_train_step, cfg, batch, device, steps: int,
         generator=torch.Generator(device=device).manual_seed(0),
         device=device, mesh=mesh)
     reset_launches()
+    collectives.clear()
     state, m = bundle.step_fn(bundle.state, batch)
     shards = state["opt_state"].param_groups[0]["params"]
     run = {"first": {k: v.item() for k, v in m.items()},
@@ -1409,7 +1459,41 @@ def train_run(make_train_step, cfg, batch, device, steps: int,
         run["loss"].append(m["loss"].item())
         run["grad_norm"].append(m["grad_norm"].item())
     run["launches"] = launches_since_reset()
+    run["collectives"] = dict(collectives)
+    if profile:
+        def one_step():
+            bundle.step_fn(state, batch)
+            sync(device)
+        profile_device_time(f"one {profile} step", one_step, top=16)
     return run
+
+
+def tp_collectives_per_step(model, cfg) -> int:
+    """The collectives over tp that one meshed train step runs (dense or
+    MoE blocks, the fused loss, pp 1; PERF.md §6): in the forward the
+    vocab-parallel embedding's sum, a row-parallel sum out of attention
+    and out of the MLP (or the experts) in each layer, the cross-entropy's
+    max and its [Σexp, target logit] sum; in the backward a column-parallel
+    input's gradient sum into attention and into the MLP in each layer and
+    into the LM head; then in the step one sum of squares for the norm for
+    each distinct set of mesh axes that shards a leaf split over tp, and a
+    broadcast over tp of each leaf every tp rank holds whole. A
+    checkpointed dense block (remat True) recomputes its forward in the
+    backward only as far as the last tensor it saved, so the sum out of
+    attention runs again and the MLP's, which ends the block, does not."""
+    from ray_tpu_torch.parallel.sharding import partition_spec
+    from ray_tpu_torch.train.train_step import named_leaves
+
+    per_layer = 4 + (1 if cfg.remat else 0)
+    keys, whole = set(), 0
+    for _, axes in named_leaves(model.logical_axes(cfg)):
+        mesh_axes = frozenset(a for t in partition_spec(axes) if t is not None
+                              for a in ((t,) if isinstance(t, str) else t))
+        if "tp" in mesh_axes:
+            keys.add(mesh_axes)
+        else:
+            whole += 1
+    return per_layer * cfg.n_layer + 1 + 1 + 2 + len(keys) + whole
 
 
 def first_step_distance(a: dict, b: dict) -> dict:
@@ -1423,10 +1507,11 @@ def first_step_distance(a: dict, b: dict) -> dict:
             "worst_grad_rel_err": by_leaf[worst]}
 
 
-def check_mesh_against_plain(tag: str, plain: dict, meshed: dict) -> dict:
+def check_mesh_against_plain(tag: str, plain: dict, meshed: dict,
+                             grad_tol: float = GRAD_PATH_REL_TOL) -> dict:
     """The first step of a world-1 mesh run against the plain run's: loss
     within MESH_LOSS_REL_TOL relative, grad norm within MESH_NORM_REL_TOL,
-    each gradient within GRAD_PATH_REL_TOL of its max-abs (rel_err).
+    each gradient within grad_tol of its max-abs (rel_err).
     Returns the distances."""
     d = first_step_distance(meshed, plain)
     log(f"[{tag}] mesh vs plain, first step: "
@@ -1434,10 +1519,10 @@ def check_mesh_against_plain(tag: str, plain: dict, meshed: dict) -> dict:
         f"relative errors loss {d['loss']} (tol {MESH_LOSS_REL_TOL}), grad "
         f"norm {d['grad_norm']} (tol {MESH_NORM_REL_TOL}); gradients "
         f"{json.dumps(d['grads'])}, worst {d['worst_grad']} "
-        f"{d['worst_grad_rel_err']} (tol {GRAD_PATH_REL_TOL})")
+        f"{d['worst_grad_rel_err']} (tol {grad_tol})")
     if not (d["loss"] <= MESH_LOSS_REL_TOL
             and d["grad_norm"] <= MESH_NORM_REL_TOL
-            and d["worst_grad_rel_err"] <= GRAD_PATH_REL_TOL):
+            and d["worst_grad_rel_err"] <= grad_tol):
         fail(f"{tag}: the mesh step disagrees with the plain step: loss "
              f"{d['loss']}, grad norm {d['grad_norm']}, {d['worst_grad']} "
              f"{d['worst_grad_rel_err']}")
@@ -1508,50 +1593,196 @@ def pipeline_and_sequential(cfg, batch, device, stages: int,
             "ms": ms}
 
 
-def fsdp_rank(rank: int, world: int, init_method: str, out: str) -> None:
-    """One rank of the multi-card run (the [parallel] phase starts `world`
-    of them on a machine with that many cards): GPT-2-124M over
-    MeshSpec(fsdp=world) on NCCL at B TRAIN_BATCH, as train_run; rank 0
-    writes the first step's metrics and the step times to `out` (JSON)."""
-    from ray_tpu_torch.models import gpt2
-    from ray_tpu_torch.parallel import mesh as mesh_lib
-    from ray_tpu_torch.train.train_step import make_gpt2_train_step, synthetic_batch
+def peak_memory(device, less: int = 0):
+    """Peak device memory in bytes less `less`; None off the card."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() - less
 
-    mesh_lib.init_distributed("nccl", init_method=init_method, rank=rank,
-                              world_size=world, timeout_s=300)
+
+def mesh_against_plain(card: str, tag: str, name: str, model, make_train_step,
+                       cfg, batch_size: int, steps: int, mesh,
+                       device="cuda", profile: bool = False,
+                       grad_tol: float = GRAD_PATH_REL_TOL) -> dict:
+    """The meshed step on `mesh` (world 1) against the plain step, from the
+    same seeded parameters and one synthetic batch of batch_size x seq_len:
+    plain and mesh 1 + `steps` steps each, then the plain step once more
+    (its own run-to-run spread). The first step held by
+    check_mesh_against_plain (each gradient within grad_tol); each kernel launched once per layer per step
+    on the card (the plain versions on the CPU); the collectives over tp
+    as many as tp_collectives_per_step says, the plain path none; with
+    steps, the mesh path's loss finite and falling. Prints step ms,
+    tokens/s and peak memory of both paths; with `profile`, one step of
+    each by kernel (after the timed ones). Returns the mesh run."""
+    from ray_tpu_torch.train.train_step import synthetic_batch
+
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in synthetic_batch(cfg, batch_size, seed=0).items()}
+    runs, peak = {}, {}
+    # "again": the plain step once more, for its own run-to-run spread
+    for path, m, n in (("plain", None, steps), ("mesh", mesh, steps),
+                       ("again", None, 0)):
+        held = sum(g.numel() * g.element_size() for r in runs.values()
+                   for g in r["grads"].values())   # earlier runs' grads
+        what = f"{name} {path}" if profile and path != "again" else ""
+        runs[path] = train_run(make_train_step, cfg, batch, device, n, m, what)
+        peak[path] = peak_memory(device, held)
+        free_device_memory()
+    spread = first_step_distance(runs.pop("again"), runs["plain"])
+    log(f"[{tag}] plain vs plain again, first step (the backward's "
+        f"run-to-run spread): loss {spread['loss']}, grad norm "
+        f"{spread['grad_norm']}, worst gradient {spread['worst_grad']} "
+        f"{spread['worst_grad_rel_err']}")
+    check_mesh_against_plain(tag, runs["plain"], runs["mesh"], grad_tol)
+    log(f"[{tag}] peak memory bytes of each run (less the earlier "
+        f"runs' gradients it holds): {json.dumps(peak)}")
+    per_step = cfg.n_layer if torch.device(device).type == "cuda" else 0
+    expected = per_step * (1 + steps)
+    for path, run in runs.items():
+        log(f"[{tag}] {path}: launches {json.dumps(run['launches'])} "
+            f"(expected {expected} each), collectives by axis "
+            f"{json.dumps(run['collectives'])}")
+        if run["launches"] != {"flash_fwd": expected, "flash_bwd": expected}:
+            fail(f"{tag} {path} path launched {run['launches']}, "
+                 f"expected {expected} each")
+    tp = runs["mesh"]["collectives"].get("tp", 0)
+    want = tp_collectives_per_step(model, cfg) * (1 + steps)
+    log(f"[{tag}] collectives over tp: {tp} in {1 + steps} steps (the "
+        f"formula: {want})")
+    if tp != want or runs["plain"]["collectives"]:
+        fail(f"{tag}: {tp} collectives over tp, the formula says {want}; "
+             f"the plain path ran {runs['plain']['collectives']}")
+    if steps:
+        losses = runs["mesh"]["loss"]
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            fail(f"{tag}: mesh path losses {losses}")
+        med = {p: sorted(r["step_ms"])[steps // 2] for p, r in runs.items()}
+        log(f"[{tag}] " + json.dumps(dict(
+            card=card, model=name, mesh="world 1 (MeshSpec())",
+            batch=batch_size, seq_len=cfg.seq_len, steps=steps,
+            mesh_loss=losses, mesh_step_ms=runs["mesh"]["step_ms"],
+            plain_step_ms=runs["plain"]["step_ms"],
+            mesh_step_ms_median=med["mesh"], plain_step_ms_median=med["plain"],
+            mesh_minus_plain_ms=med["mesh"] - med["plain"],
+            mesh_tokens_per_s=batch_size * cfg.seq_len / med["mesh"] * 1e3,
+            plain_tokens_per_s=batch_size * cfg.seq_len / med["plain"] * 1e3,
+            mesh_peak_memory_bytes=peak["mesh"],
+            plain_peak_memory_bytes=peak["plain"])))
+    return runs["mesh"]
+
+
+def remat_against_mesh(card: str, mesh, ref: dict, cfg, batch_size: int,
+                       device="cuda") -> dict:
+    """[parallel-tp] once more with each block checkpointed (cfg, a Llama
+    config with remat True): one meshed step at batch_size. On the card the
+    backward, and with it each block's rerun, runs on the autograd
+    engine's own thread, and the rerun must run under the mesh: the
+    collectives over tp as tp_collectives_per_step counts them with
+    remat, each kernel once per layer and flash_fwd once more for the
+    rerun (none off the card), the first step's loss and grad norm those
+    of the run without remat (`ref`) within MESH_LOSS_REL_TOL and
+    MESH_NORM_REL_TOL relative. Returns the launches."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.train_step import make_llama_train_step, synthetic_batch
+
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in synthetic_batch(cfg, batch_size, seed=0).items()}
+    run = train_run(make_llama_train_step, cfg, batch, device, 0, mesh)
+    err = {k: abs(run["first"][k] - ref["first"][k]) / abs(ref["first"][k])
+           for k in ("loss", "grad_norm")}
+    per = cfg.n_layer if torch.device(device).type == "cuda" else 0
+    expected = {"flash_fwd": 2 * per, "flash_bwd": per}
+    tp, want = run["collectives"].get("tp", 0), tp_collectives_per_step(llama, cfg)
+    log("[parallel-tp] remat True, one step: " + json.dumps(dict(
+        card=card, batch=batch_size, first=run["first"],
+        without_remat=ref["first"], rel_err=err, launches=run["launches"],
+        expected_launches=expected, tp_collectives=tp, tp_formula=want)))
+    if not (err["loss"] <= MESH_LOSS_REL_TOL and err["grad_norm"] <= MESH_NORM_REL_TOL):
+        fail(f"parallel-tp remat step disagrees with the step without: {err}")
+    if run["launches"] != expected or tp != want:
+        fail(f"parallel-tp remat step: launches {run['launches']} (expected "
+             f"{expected}), {tp} collectives over tp (the formula: {want})")
+    return run["launches"]
+
+
+def multi_card_plans(count: int) -> list:
+    """The multi-card runs on `count` visible cards (at most
+    MULTI_CARD_MAX used; none on one card): GPT-2-124M over fsdp on every
+    card; llama_1b over tp 2, or tp 4 on four cards; on four, GPT-2-124M
+    over fsdp2·tp2."""
+    if count < 2:
+        return []
+    world = min(count, MULTI_CARD_MAX)
+    tp = 4 if world == 4 else 2
+    plans = [dict(name=f"gpt2_124m_fsdp{world}", model="gpt2", config="gpt2_124m",
+                  mesh={"fsdp": world}, batch=TRAIN_BATCH),
+             dict(name=f"llama_1b_tp{tp}", model="llama", config="llama_1b",
+                  mesh={"tp": tp}, batch=LLAMA_TRAIN_BATCH)]
+    if world == 4:
+        plans.append(dict(name="gpt2_124m_fsdp2tp2", model="gpt2",
+                          config="gpt2_124m", mesh={"fsdp": 2, "tp": 2},
+                          batch=TRAIN_BATCH))
+    return plans
+
+
+def rank_attention_shape(plan: dict):
+    """The q, k and v shape [B, H, S, hd] that one rank of a multi-card plan
+    gives the flash kernels, and how many kv heads it holds before it
+    repeats them to H: the batch split over dp·fsdp, the heads and kv
+    heads over tp."""
+    from ray_tpu_torch.models import gpt2, llama
+
+    model = {"gpt2": gpt2, "llama": llama}[plan["model"]]
+    cfg = getattr(model, plan["config"])()
+    mesh = {"dp": 1, "fsdp": 1, "tp": 1, **plan["mesh"]}
+    rows = plan["batch"] // (mesh["dp"] * mesh["fsdp"])
+    kv = getattr(cfg, "n_kv_head", cfg.n_head)
+    return ((rows, cfg.n_head // mesh["tp"], cfg.seq_len, cfg.head_dim),
+            kv // mesh["tp"])
+
+
+def mesh_rank(rank: int, init_method: str, out: str, plan: dict,
+              backend: str = "nccl", device: str = "cuda") -> None:
+    """One rank of a multi-card run (multi_card starts one process a card):
+    the plan's model (remat off) over its MeshSpec at its global batch, as
+    train_run; writes this rank's first step's metrics, step times,
+    launches, collectives and peak memory to `out` (JSON)."""
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.train.train_step import (
+        make_gpt2_train_step, make_llama_train_step, synthetic_batch,
+    )
+
+    spec = mesh_lib.MeshSpec(**plan["mesh"])
+    mesh_lib.init_distributed(backend, init_method=init_method, rank=rank,
+                              world_size=spec.num_devices, timeout_s=300)
     try:
-        mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(fsdp=world), "cuda")
-        cfg = gpt2.gpt2_124m(remat=False)
-        run = train_run(make_gpt2_train_step, cfg,
-                        synthetic_batch(cfg, TRAIN_BATCH, seed=0), "cuda",
-                        TRAIN_STEPS, mesh)
-        if rank == 0:
-            Path(out).write_text(json.dumps(
-                {k: run[k] for k in ("first", "loss", "grad_norm", "step_ms")}))
+        model, make = {"gpt2": (gpt2, make_gpt2_train_step),
+                       "llama": (llama, make_llama_train_step)}[plan["model"]]
+        cfg = getattr(model, plan["config"])(remat=False)
+        run = train_run(make, cfg, synthetic_batch(cfg, plan["batch"], seed=0),
+                        device, TRAIN_STEPS, mesh_lib.make_mesh(spec, device))
+        Path(out).write_text(json.dumps(
+            {**{k: run[k] for k in ("first", "loss", "grad_norm", "step_ms",
+                                     "launches", "collectives")},
+             "peak_memory_bytes": peak_memory(device)}))
     finally:
         torch.distributed.destroy_process_group()
 
 
-def multi_card(card: str, world_one: dict) -> None:
-    """With 2 or more cards: min(count, MULTI_CARD_MAX) NCCL ranks train
-    GPT-2-124M over fsdp, held to the world-1 mesh run (first step's loss
-    within LOSS_TOL, grad norm within GRAD_PATH_REL_TOL relative: the
-    rows are split, so the products round on other shapes). With one card
-    it says that the run did not take place."""
-    world = min(torch.cuda.device_count(), MULTI_CARD_MAX)
-    if world < 2:
-        log("[parallel] multi-card run: did not take place (one card; "
-            "multi-rank behaviour is proved on the CPU over gloo)")
-        return
+def run_ranks(plan: dict, world: int, **kw) -> list:
+    """`world` processes of mesh_rank on `plan`, one a card (LOCAL_RANK),
+    killed after 600 s; each rank's JSON."""
     init = f"tcp://localhost:{free_port()}"
-    out = REPO / "build" / "parallel_fsdp.json"
-    out.parent.mkdir(exist_ok=True)
-    out.unlink(missing_ok=True)
+    outs = [REPO / "build" / f"parallel_{plan['name']}.{r}.json" for r in range(world)]
+    outs[0].parent.mkdir(exist_ok=True)
+    for o in outs:
+        o.unlink(missing_ok=True)
     code = ("import sys; sys.path.insert(0, {repo!r}); import chip_smoke; "
-            "chip_smoke.fsdp_rank({r}, {n}, {init!r}, {out!r})")
+            "chip_smoke.mesh_rank({r}, {init!r}, {out!r}, {plan!r}, **{kw!r})")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code.format(repo=str(REPO), r=r, n=world,
-                                           init=init, out=str(out))],
+        [sys.executable, "-c", code.format(repo=str(REPO), r=r, init=init,
+                                           out=str(outs[r]), plan=plan, kw=kw)],
         env={**os.environ, "LOCAL_RANK": str(r)})
         for r in range(world)]
     deadline = time.monotonic() + 600
@@ -1565,33 +1796,92 @@ def multi_card(card: str, world_one: dict) -> None:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    if any(p.returncode for p in procs) or not out.exists():
-        fail(f"multi-card fsdp run failed: exit codes {[p.returncode for p in procs]}")
-    run = json.loads(out.read_text())
-    loss_err = abs(run["first"]["loss"] - world_one["first"]["loss"])
-    norm_err = (abs(run["first"]["grad_norm"] - world_one["first"]["grad_norm"])
-                / world_one["first"]["grad_norm"])
+    if any(p.returncode for p in procs) or not all(o.exists() for o in outs):
+        fail(f"multi-card run {plan['name']} failed: exit codes "
+             f"{[p.returncode for p in procs]}")
+    return [json.loads(o.read_text()) for o in outs]
+
+
+def hold_to_world_one(card: str, plan: dict, ranks: list, ref: dict,
+                      device="cuda") -> None:
+    """A multi-card run of `plan` (each rank's JSON from run_ranks) held
+    to the world-1 mesh run of its model `ref`: the first step's loss
+    within LOSS_TOL, its grad norm within MESH_NORM_REL_TOL relative, the
+    limit the world-1 mesh step is held to (the rows are split and the
+    row-parallel products sum their partial sums in another order, so the
+    products round on other shapes; measured on four H100s: loss 9.5e-7
+    to 2.9e-4 apart, grad norm 6.7e-6 to 9.0e-5, inside the plain step's
+    own grad-norm spread of up to 1.6e-4), every rank the same loss; each
+    kernel
+    once per layer per step (the plain versions off the card); the
+    collectives over tp as tp_collectives_per_step says (on a tp group of
+    one too). Prints step ms, tokens/s per card and peak memory per card."""
+    from ray_tpu_torch.models import gpt2, llama
+
+    run, world = ranks[0], len(ranks)
+    model = {"gpt2": gpt2, "llama": llama}[plan["model"]]
+    cfg = getattr(model, plan["config"])(remat=False)
+    loss_err = abs(run["first"]["loss"] - ref["first"]["loss"])
+    norm_err = (abs(run["first"]["grad_norm"] - ref["first"]["grad_norm"])
+                / ref["first"]["grad_norm"])
     step = sorted(run["step_ms"])[len(run["step_ms"]) // 2]
+    steps = 1 + len(run["step_ms"])
+    tp_want = tp_collectives_per_step(model, cfg) * steps
     log(f"[parallel] " + json.dumps(dict(
-        card=card, cards=world, mesh=f"fsdp{world}", model="gpt2_124m",
-        batch=TRAIN_BATCH, first=run["first"], loss_err=loss_err,
-        grad_norm_rel_err=norm_err, loss=run["loss"], step_ms=run["step_ms"],
-        step_ms_median=step,
-        tokens_per_s_per_card=TRAIN_BATCH * 1024 / (step / 1e3) / world)))
-    if not (loss_err <= LOSS_TOL and norm_err <= GRAD_PATH_REL_TOL):
-        fail(f"multi-card fsdp{world} disagrees with the world-1 step: "
+        card=card, cards=world, mesh=plan["mesh"], model=plan["config"],
+        batch=plan["batch"], seq_len=cfg.seq_len, first=run["first"],
+        world_one_first=ref["first"], loss_err=loss_err,
+        grad_norm_rel_err=norm_err, loss=run["loss"],
+        step_ms=run["step_ms"], step_ms_median=step,
+        world_one_step_ms_median=sorted(ref["step_ms"])[len(ref["step_ms"]) // 2],
+        tokens_per_s_per_card=plan["batch"] * cfg.seq_len / (step / 1e3) / world,
+        peak_memory_bytes_per_card=[r["peak_memory_bytes"] for r in ranks],
+        launches=run["launches"], collectives=run["collectives"],
+        tp_collectives_formula=tp_want)))
+    if not (loss_err <= LOSS_TOL and norm_err <= MESH_NORM_REL_TOL):
+        fail(f"multi-card {plan['name']} disagrees with the world-1 step: "
              f"loss {loss_err}, grad norm {norm_err}")
+    if len({r["first"]["loss"] for r in ranks}) != 1:
+        fail(f"multi-card {plan['name']}: the ranks' losses differ")
+    expected = cfg.n_layer * steps if torch.device(device).type == "cuda" else 0
+    if run["launches"] != {"flash_fwd": expected, "flash_bwd": expected}:
+        fail(f"multi-card {plan['name']} launched {run['launches']}, "
+             f"expected {expected} each")
+    if run["collectives"].get("tp", 0) != tp_want:
+        fail(f"multi-card {plan['name']}: {run['collectives']} "
+             f"collectives, {tp_want} over tp by the formula")
+
+
+def multi_card(card: str, world_one: dict) -> dict:
+    """With 2 or more cards: each of multi_card_plans, one NCCL rank a card,
+    held to the world-1 mesh run of its model (world_one["gpt2"] or
+    ["llama"]) by hold_to_world_one. With one card it says that the run
+    did not take place. Returns the launches of rank 0 by plan."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        log("[parallel] multi-card run: did not take place (one card; "
+            "multi-rank behaviour is proved on the CPU over gloo)")
+        return {}
+    launches = {}
+    for plan in multi_card_plans(count):
+        ranks = run_ranks(plan, math.prod(plan["mesh"].values()))
+        hold_to_world_one(card, plan, ranks, world_one[plan["model"]])
+        launches[plan["name"]] = ranks[0]["launches"]
+    return launches
 
 
 def multi_card_check() -> int:
-    """The multi-card run and what it is held to, alone, for a machine with
-    2 to 4 cards: python3 -c "import chip_smoke, sys;
+    """The multi-card runs and what they are held to, alone, for a machine
+    with 2 to 4 cards: python3 -c "import chip_smoke, sys;
     sys.exit(chip_smoke.multi_card_check())". Builds the kernels, trains
-    GPT-2-124M through the world-1 mesh path (one NCCL rank, card 0) as
-    the [parallel] phase does, then over fsdp on every card (multi_card)."""
-    from ray_tpu_torch.models import gpt2
+    GPT-2-124M and llama_1b through the world-1 mesh path (one NCCL rank,
+    card 0) as the [parallel] and [parallel-tp] phases do, then each of
+    multi_card_plans over the cards (multi_card)."""
+    from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.parallel import mesh as mesh_lib
-    from ray_tpu_torch.train.train_step import make_gpt2_train_step, synthetic_batch
+    from ray_tpu_torch.train.train_step import (
+        make_gpt2_train_step, make_llama_train_step, synthetic_batch,
+    )
 
     if torch.cuda.device_count() < 2:
         print("chip_smoke: the multi-card run needs 2 or more cards", file=sys.stderr)
@@ -1603,13 +1893,20 @@ def multi_card_check() -> int:
     mesh_lib.init_distributed("nccl", init_method=f"tcp://localhost:{free_port()}",
                               rank=0, world_size=1, timeout_s=300)
     try:
-        cfg = gpt2.gpt2_124m(remat=False)
-        world_one = train_run(
-            make_gpt2_train_step, cfg, synthetic_batch(cfg, TRAIN_BATCH, seed=0),
-            "cuda", TRAIN_STEPS, mesh_lib.make_mesh(mesh_lib.MeshSpec(), "cuda"))
-        log("[parallel] world 1: " + json.dumps(
-            {k: world_one[k] for k in ("first", "loss", "step_ms")}))
-        free_device_memory()
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(), "cuda")
+        world_one = {}
+        for key, make, cfg, batch in (
+                ("gpt2", make_gpt2_train_step, gpt2.gpt2_124m(remat=False),
+                 TRAIN_BATCH),
+                ("llama", make_llama_train_step, llama.llama_1b(remat=False),
+                 LLAMA_TRAIN_BATCH)):
+            world_one[key] = train_run(
+                make, cfg, synthetic_batch(cfg, batch, seed=0), "cuda",
+                TRAIN_STEPS, mesh)
+            world_one[key].pop("grads")
+            log(f"[parallel] world 1, {key}: " + json.dumps(
+                {k: world_one[key][k] for k in ("first", "loss", "step_ms")}))
+            free_device_memory()
         multi_card(card, world_one)
     finally:
         torch.distributed.destroy_process_group()
@@ -1617,72 +1914,55 @@ def multi_card_check() -> int:
     return 0
 
 
-def parallel_phase(card: str) -> dict:
+def parallel_phase(card: str, profile: bool = False) -> dict:
     """[parallel]: a world-1 NCCL process group started here and its
     make_mesh(MeshSpec()) on cuda. GPT-2-124M at B TRAIN_BATCH through the
     mesh path, 1 + TRAIN_STEPS steps, held to the plain step (and timed
-    beside it); gpt2_124m(moe_experts=8), one step each way; the local
+    beside it); gpt2_124m(moe_experts=8), one step each way; [parallel-tp]
+    llama_1b at B LLAMA_TRAIN_BATCH, 1 + TRAIN_STEPS steps, through the
+    same tensor-parallel code on a group of one (mesh_against_plain for
+    all three), then once with remat (remat_against_mesh); the local
     pipeline (PIPELINE_STAGES stages, PIPELINE_MICROBATCHES microbatches)
-    against the sequential blocks; the multi-card run where there are
-    cards for it. Returns the launches by path."""
-    from ray_tpu_torch.models import gpt2
+    against the sequential blocks; the multi-card runs where there are
+    cards for them. With `profile`, one
+    step of each path of [parallel] and [parallel-tp] by kernel. Returns
+    the launches by path."""
+    from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.parallel import mesh as mesh_lib
-    from ray_tpu_torch.train.train_step import make_gpt2_train_step, synthetic_batch
+    from ray_tpu_torch.train.train_step import (
+        make_gpt2_train_step, make_llama_train_step, synthetic_batch,
+    )
 
     free_device_memory()
     mesh_lib.init_distributed("nccl", init_method=f"tcp://localhost:{free_port()}",
                               rank=0, world_size=1, timeout_s=300)
     try:
         mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(), "cuda")
-        launches = {}
-        for tag, cfg, steps in (
-                ("parallel", gpt2.gpt2_124m(remat=False), TRAIN_STEPS),
-                ("parallel-moe", gpt2.gpt2_124m(moe_experts=MOE_EXPERTS,
-                                                remat=False), 0)):
-            batch = {k: torch.as_tensor(v, device="cuda")
-                     for k, v in synthetic_batch(cfg, TRAIN_BATCH, seed=0).items()}
-            runs, peak = {}, {}
-            # "again": the plain step once more, for its own run-to-run spread
-            for path, m, n in (("plain", None, steps), ("mesh", mesh, steps),
-                               ("again", None, 0)):
-                held = sum(g.numel() * g.element_size() for r in runs.values()
-                           for g in r["grads"].values())   # earlier runs' grads
-                runs[path] = train_run(make_gpt2_train_step, cfg, batch, "cuda",
-                                       n, m)
-                peak[path] = torch.cuda.max_memory_allocated() - held
-                free_device_memory()
-            spread = first_step_distance(runs.pop("again"), runs["plain"])
-            log(f"[{tag}] plain vs plain again, first step (the backward's "
-                f"run-to-run spread): loss {spread['loss']}, grad norm "
-                f"{spread['grad_norm']}, worst gradient {spread['worst_grad']} "
-                f"{spread['worst_grad_rel_err']}")
-            check_mesh_against_plain(tag, runs["plain"], runs["mesh"])
-            log(f"[{tag}] peak memory bytes of each run (less the earlier "
-                f"runs' gradients it holds): {json.dumps(peak)}")
-            expected = cfg.n_layer * (1 + steps)
-            for path, run in runs.items():
-                log(f"[{tag}] {path}: launches {json.dumps(run['launches'])} "
-                    f"(expected {expected} each)")
-                if run["launches"] != {"flash_fwd": expected, "flash_bwd": expected}:
-                    fail(f"{tag} {path} path launched {run['launches']}, "
-                         f"expected {expected} each")
-            launches[tag] = runs["mesh"]["launches"]
-            if steps:
-                losses = runs["mesh"]["loss"]
-                if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
-                    fail(f"{tag}: mesh path losses {losses}")
-                med = {p: sorted(r["step_ms"])[steps // 2] for p, r in runs.items()}
-                log(f"[{tag}] " + json.dumps(dict(
-                    card=card, model="gpt2_124m", mesh="world 1 (MeshSpec())",
-                    batch=TRAIN_BATCH, steps=steps, mesh_loss=losses,
-                    mesh_step_ms=runs["mesh"]["step_ms"],
-                    plain_step_ms=runs["plain"]["step_ms"],
-                    mesh_step_ms_median=med["mesh"],
-                    plain_step_ms_median=med["plain"],
-                    mesh_minus_plain_ms=med["mesh"] - med["plain"])))
-                world_one = runs["mesh"]
-            del runs
+        launches, world_one = {}, {}
+        # the GPT-2 and Llama mesh runs are what the multi-card runs of
+        # each model are held to
+        for tag, name, model, make, cfg, batch, steps, key, grad_tol in (
+                ("parallel", "gpt2_124m", gpt2, make_gpt2_train_step,
+                 gpt2.gpt2_124m(remat=False), TRAIN_BATCH, TRAIN_STEPS, "gpt2",
+                 GRAD_PATH_REL_TOL),
+                ("parallel-moe", "gpt2_124m_moe8", gpt2, make_gpt2_train_step,
+                 gpt2.gpt2_124m(moe_experts=MOE_EXPERTS, remat=False),
+                 TRAIN_BATCH, 0, None, GRAD_PATH_REL_TOL),
+                ("parallel-tp", "llama_1b", llama, make_llama_train_step,
+                 llama.llama_1b(remat=False), LLAMA_TRAIN_BATCH, TRAIN_STEPS,
+                 "llama", LLAMA_MESH_GRAD_REL_TOL)):
+            run = mesh_against_plain(card, tag, name, model, make, cfg, batch,
+                                     steps, mesh, profile=profile and steps > 0,
+                                     grad_tol=grad_tol)
+            launches[tag] = run.pop("launches")
+            if key:
+                world_one[key] = {k: run[k] for k in ("first", "step_ms")}
+            del run
             free_device_memory()
+        launches["parallel-tp-remat"] = remat_against_mesh(
+            card, mesh, world_one["llama"], llama.llama_1b(remat=True),
+            LLAMA_TRAIN_BATCH)
+        free_device_memory()
 
         cfg = gpt2.gpt2_124m()
         pipe = pipeline_and_sequential(
@@ -1700,7 +1980,7 @@ def parallel_phase(card: str) -> dict:
             fail(f"pipeline disagrees with the sequential blocks: {pipe}")
         launches["pipeline"] = pipe["launches"]
         free_device_memory()
-        multi_card(card, world_one)
+        launches["multi_card"] = multi_card(card, world_one)
     finally:
         torch.distributed.destroy_process_group()
     free_device_memory()
@@ -1777,7 +2057,7 @@ def main() -> int:
                            replace(moe_cfg, remat=False), TRAIN_BATCH,
                            COMPARE_BATCH, MOE_GRAD_PATH_REL_TOL, MOE_LOSS_TOL)
 
-    par = parallel_phase(card)
+    par = parallel_phase(card, args.profile)
 
     def numbers(row, launches):
         """One path's numbers for a kernel: its launches on that path beside
@@ -1786,6 +2066,12 @@ def main() -> int:
                 **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "bound_share",
                                        "library_ms")}}
+
+    def multi_card_paths(rows, prefix, runs, kernel):
+        """The multi-card runs' rank 0 launches, beside the case at that
+        rank's shape."""
+        return {f"multi_card_{n}": numbers(rows[f"{prefix}rank_{n}"], run[kernel])
+                for n, run in runs.items()}
 
     # top level: GPT-2's training path at its own shape; by_path: each main
     # path at its own shape with its own launches
@@ -1800,6 +2086,11 @@ def main() -> int:
         "parallel_moe_train": numbers(bwd["fwd_main"],
                                       par["parallel-moe"]["flash_fwd"]),
         "pipeline": numbers(bwd["fwd_pipeline"], par["pipeline"]["flash_fwd"]),
+        "parallel_tp_llama_train": numbers(bwd["fwd_llama_train"],
+                                           par["parallel-tp"]["flash_fwd"]),
+        "parallel_tp_llama_train_remat": numbers(
+            bwd["fwd_llama_train"], par["parallel-tp-remat"]["flash_fwd"]),
+        **multi_card_paths(bwd, "fwd_", par["multi_card"], "flash_fwd"),
     }
     bwd_paths = {
         "train": numbers(bwd["main"], train["flash_bwd"]),
@@ -1809,6 +2100,11 @@ def main() -> int:
         "parallel_moe_train": numbers(bwd["main"],
                                       par["parallel-moe"]["flash_bwd"]),
         "pipeline": numbers(bwd["pipeline"], par["pipeline"]["flash_bwd"]),
+        "parallel_tp_llama_train": numbers(bwd["llama_train"],
+                                           par["parallel-tp"]["flash_bwd"]),
+        "parallel_tp_llama_train_remat": numbers(
+            bwd["llama_train"], par["parallel-tp-remat"]["flash_bwd"]),
+        **multi_card_paths(bwd, "", par["multi_card"], "flash_bwd"),
     }
     log(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",

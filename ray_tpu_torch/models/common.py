@@ -8,6 +8,7 @@ layout, with every block parameter stacked on a leading layer axis.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from functools import partial
 from typing import Any, Callable, Dict, Iterator
@@ -18,6 +19,8 @@ from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
+
+from ray_tpu_torch.parallel.mesh import current_mesh, sums_of_copies, use_mesh
 
 
 def round_up(x: int, m: int) -> int:
@@ -93,13 +96,25 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _rerunnable(mesh, keeps_products: bool, block: Callable, *args):
+    """block(*args) under `mesh`; where the checkpoint keeps the products'
+    outputs for the recompute, the tp sums take copies of them (an
+    in-place sum would change what the recompute reads)."""
+    with use_mesh(mesh), (sums_of_copies() if keeps_products
+                          else contextlib.nullcontext()):
+        return block(*args)
+
+
 def run_block(block: Callable, remat: Any, *args):
     """block(*args) under a remat policy: True checkpoints the block (its
     activations are recomputed in the backward), "dots" saves only the
     matrix products' outputs (as jax.checkpoint_policies.checkpoint_dots
-    does), False saves everything."""
+    does), False saves everything. A checkpointed block's backward runs it
+    again under the mesh (parallel/mesh.py) it ran under here, on whatever
+    thread the autograd engine runs it."""
     if not remat or not torch.is_grad_enabled():
         return block(*args)
+    block = partial(_rerunnable, current_mesh(), remat == "dots", block)
     if remat == "dots":
         return checkpoint(
             block, *args, use_reentrant=False,

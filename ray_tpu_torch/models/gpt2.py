@@ -32,7 +32,13 @@ MoE layer holds E/ep experts a rank and counts capacity over the global
 batch; with pp > 1 the blocks run as a GPipe pipeline over the pp group
 (parallel/pipeline.py), each rank holding its stage's layers, and only the
 last stage computes the head and the loss (MoE blocks are refused with pp,
-as the JAX model refuses them).
+as the JAX model refuses them). Over tp (parallel/tensor.py) a rank holds
+H/tp heads, F/tp MLP columns (of every expert, with MoE) and V/tp rows of
+wte, and a block takes its widths from those shards: qkv and fc are
+column-parallel, proj and out row-parallel with their biases added after
+the sum; the embedding, the tied head and the loss are vocab-parallel, so
+under a mesh `forward` returns this rank's logits [B, S, V/tp]
+(parallel.tensor.gather_vocab puts them together).
 
 `scan_layers` and the `attn_*block*` fields are kept for parity and have
 no effect here: the forward runs eagerly, layer by layer, and the kernels'
@@ -54,12 +60,15 @@ from ray_tpu_torch.models.common import (  # params_from_jax: a JAX tree → tor
     run_block,
 )
 from ray_tpu_torch.ops.attention import flash_attention
-from ray_tpu_torch.ops.cross_entropy import softmax_xent
+from ray_tpu_torch.ops.cross_entropy import vocab_parallel_xent
 from ray_tpu_torch.ops.moe import (
     moe_init, moe_logical_axes, moe_mlp, moe_param_shapes,
 )
 from ray_tpu_torch.parallel.mesh import axis_size, current_mesh
 from ray_tpu_torch.parallel.pipeline import pipeline_apply, stages_from_layers
+from ray_tpu_torch.parallel.tensor import (
+    column_in, row_out, vocab_parallel_embed, vocab_parallel_logits,
+)
 
 
 @dataclass(frozen=True)
@@ -292,19 +301,24 @@ def _attention(q, k, v, cfg: GPT2Config):
 
 def _block(x, p: Dict[str, Any], cfg: GPT2Config):
     """One transformer block. x: [B, S, D], or (x, aux) with MoE: the
-    load-balancing loss accumulates through the layer carry."""
+    load-balancing loss accumulates through the layer carry. The head
+    count and MLP width are those of the weights given (this rank's
+    shares under tp)."""
     if cfg.moe_experts > 0:
         x, aux = x
+    mesh = current_mesh()
     B, S, D = x.shape
-    H, hd, dt = cfg.n_head, cfg.head_dim, cfg.dtype
-    h = _layernorm(x, p["ln1_scale"], p["ln1_bias"])
+    _, _, H, hd = p["qkv_w"].shape
+    dt = cfg.dtype
+    h = column_in(_layernorm(x, p["ln1_scale"], p["ln1_bias"]), mesh)
     # one [D, 3·H·hd] product; q, k, v come out head-major [B, H, S, hd]
     qkv = (h @ p["qkv_w"].to(dt).reshape(D, 3 * H * hd)).view(B, S, 3, H, hd)
     qkv = qkv + p["qkv_b"].to(dt)
     q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
     attn = _attention(q, k, v, cfg)
     attn = attn.transpose(1, 2).reshape(B, S, H * hd)
-    x = x + attn @ p["proj_w"].to(dt).reshape(H * hd, D) + p["proj_b"].to(dt)
+    proj = row_out(attn @ p["proj_w"].to(dt).reshape(H * hd, D), mesh)
+    x = x + proj + p["proj_b"].to(dt)
     h = _layernorm(x, p["ln2_scale"], p["ln2_bias"])
     if cfg.moe_experts > 0:
         y, layer_aux = moe_mlp(
@@ -312,9 +326,9 @@ def _block(x, p: Dict[str, Any], cfg: GPT2Config):
             capacity_factor=cfg.moe_capacity_factor, dtype=dt,
         )
         return x + y, aux + layer_aux
-    h = h @ p["fc_w"].to(dt) + p["fc_b"].to(dt)
+    h = column_in(h, mesh) @ p["fc_w"].to(dt) + p["fc_b"].to(dt)
     h = F.gelu(h, approximate="tanh")
-    return x + h @ p["out_w"].to(dt) + p["out_b"].to(dt)
+    return x + row_out(h @ p["out_w"].to(dt), mesh) + p["out_b"].to(dt)
 
 
 def _pipeline_stages(mesh) -> int:
@@ -361,9 +375,9 @@ def _trunk(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config):
     tokens = torch.as_tensor(tokens, device=wte.device).long()
     S = tokens.shape[1]
     dt = cfg.dtype
-    x = wte.to(dt)[tokens] + params["wpe"][:S].to(dt)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     mesh = current_mesh()
+    x = vocab_parallel_embed(wte.to(dt), tokens, mesh) + params["wpe"][:S].to(dt)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     pp = _pipeline_stages(mesh)
     if pp > 1:
         x = _blocks_pipelined(params["blocks"], x, cfg, mesh, pp)
@@ -378,20 +392,21 @@ def _trunk(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config):
 
 
 def forward(params: Dict[str, Any], tokens, cfg: GPT2Config) -> torch.Tensor:
-    """tokens [B, S] int → logits [B, S, padded_vocab] (compute dtype)."""
+    """tokens [B, S] int → logits [B, S, padded_vocab] (compute dtype);
+    under a mesh this rank's [B, S, padded_vocab / tp] (module
+    docstring)."""
     x, _ = _trunk(params, tokens, cfg)
     # tied LM head
-    return x @ params["wte"].to(cfg.dtype).T
+    return vocab_parallel_logits(x, params["wte"].to(cfg.dtype).T, current_mesh())
 
 
-def _chunk_nll(x_c, targets_c, wte):
-    """[B, c, D] hidden + [B, c] targets → sum nll for the chunk."""
-    logits = (x_c @ wte.T).float()
-    logp = torch.log_softmax(logits, dim=-1)
-    mask = targets_c >= 0
-    safe = torch.where(mask, targets_c, torch.zeros_like(targets_c))
-    nll = -logp.gather(-1, safe[..., None])[..., 0]
-    return (nll * mask).sum()
+def _chunk_nll(x_c, targets_c, wte, mesh):
+    """[B, c, D] hidden + [B, c] targets → sum nll for the chunk, through the
+    vocab-parallel head and cross-entropy (the fused ones without a mesh).
+    The mesh is an argument: the backward runs this again on the autograd
+    engine's thread."""
+    return vocab_parallel_xent(vocab_parallel_logits(x_c, wte.T, mesh),
+                               targets_c, mesh).sum()
 
 
 def loss_terms(params: Dict[str, Any], tokens, targets, cfg: GPT2Config):
@@ -401,28 +416,32 @@ def loss_terms(params: Dict[str, Any], tokens, targets, cfg: GPT2Config):
     targets [B, S] int (-1 = ignore).
 
     With loss_chunk = 0 (or one that does not divide S, or equals it) the
-    LM head's logits go through the fused `softmax_xent`, whose backward
+    LM head's logits go through the fused `softmax_xent` (under a mesh
+    `vocab_parallel_xent`), whose backward
     keeps only the bf16 logits and a [B, S] lse. Otherwise the sequence is
-    cut into chunks, each chunk's logits built, reduced to a scalar and
-    rebuilt in the backward (torch.utils.checkpoint): the full [B, S, V]
-    logits never exist at once. Same math, f32 softmax, in both.
+    cut into chunks, each chunk's logits built and reduced to a scalar by
+    the same head and cross-entropy and rebuilt in the backward
+    (torch.utils.checkpoint): the full [B, S, V] logits never exist at
+    once.
 
     On an earlier stage of a pipeline the head is not computed: the sum is
     a 0 that carries the stage's outputs into the backward."""
     x, moe_aux = _trunk(params, tokens, cfg)
     aux_term = cfg.moe_aux_coeff * moe_aux
-    if not _last_stage(current_mesh()):
+    mesh = current_mesh()
+    if not _last_stage(mesh):
         return x.float().mul(0).sum(), aux_term
     S = x.shape[1]
     targets = torch.as_tensor(targets, device=x.device).long()
     wte = params["wte"].to(cfg.dtype)
     chunk = cfg.loss_chunk or 0
     if chunk <= 0 or S % chunk or S == chunk:
-        return softmax_xent(x @ wte.T, targets).sum(), aux_term
+        logits = vocab_parallel_logits(x, wte.T, mesh)
+        return vocab_parallel_xent(logits, targets, mesh).sum(), aux_term
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, S, chunk):
         s = checkpoint(_chunk_nll, x[:, i:i + chunk], targets[:, i:i + chunk],
-                       wte, use_reentrant=False)
+                       wte, mesh, use_reentrant=False)
         total = total + s
     return total, aux_term
 

@@ -19,6 +19,14 @@ plain versions for a CPU input); "xla" is the JAX model's plain einsum
 path. `remat`: True, "dots" or False, as GPT-2's. `scan_layers` and the
 `attn_block_*` fields are kept for parity and have no effect here.
 
+Over a device mesh's tp axis (parallel/tensor.py, entered by the train
+step) a rank holds H/tp query heads, KH/tp kv heads (the group count H/KH
+is unchanged, and each local kv head is repeated in place as before),
+F/tp SwiGLU columns and V/tp rows of `wte` and columns of `lm_head`: wq,
+wk, wv, w_gate and w_up are column-parallel, wo and w_down row-parallel;
+the embedding, the head and the loss are vocab-parallel, so under a mesh
+`forward` returns this rank's logits [B, S, V/tp].
+
 `params_from_hf` maps a transformers `LlamaForCausalLM` that the caller
 built or loaded; this module never imports transformers.
 """
@@ -37,7 +45,11 @@ from ray_tpu_torch.models.common import (  # params_from_jax: a JAX tree → tor
     run_block,
 )
 from ray_tpu_torch.ops.attention import flash_attention
-from ray_tpu_torch.ops.cross_entropy import softmax_xent
+from ray_tpu_torch.ops.cross_entropy import vocab_parallel_xent
+from ray_tpu_torch.parallel.mesh import current_mesh
+from ray_tpu_torch.parallel.tensor import (
+    column_in, row_out, vocab_parallel_embed, vocab_parallel_logits,
+)
 
 
 @dataclass(frozen=True)
@@ -236,26 +248,28 @@ def _heads(h, w, dt):
 
 
 def _block(x, p: Dict[str, torch.Tensor], positions, cfg: LlamaConfig):
-    """One decoder block. x: [B, S, D]."""
+    """One decoder block. x: [B, S, D]; the heads and SwiGLU columns are
+    those of the weights given (this rank's shares under tp)."""
+    mesh = current_mesh()
     B, S, D = x.shape
     dt = cfg.dtype
-    h = _rmsnorm(x, p["attn_norm"], cfg.rms_eps)
+    h = column_in(_rmsnorm(x, p["attn_norm"], cfg.rms_eps), mesh)
     q = _rope(_heads(h, p["wq"], dt), positions, cfg.rope_theta)
     k = _rope(_heads(h, p["wk"], dt), positions, cfg.rope_theta)
     v = _heads(h, p["wv"], dt)
-    attn = _attention(q, k, v, cfg).transpose(1, 2).reshape(B, S, D)
-    x = x + attn @ p["wo"].to(dt).reshape(D, D)
-    h = _rmsnorm(x, p["mlp_norm"], cfg.rms_eps)
+    attn = _attention(q, k, v, cfg).transpose(1, 2).reshape(B, S, -1)
+    x = x + row_out(attn @ p["wo"].to(dt).reshape(-1, D), mesh)
+    h = column_in(_rmsnorm(x, p["mlp_norm"], cfg.rms_eps), mesh)
     gate = F.silu(h @ p["w_gate"].to(dt))
     up = h @ p["w_up"].to(dt)
-    return x + (gate * up) @ p["w_down"].to(dt)
+    return x + row_out((gate * up) @ p["w_down"].to(dt), mesh)
 
 
 def _trunk(params: Dict[str, Any], tokens, cfg: LlamaConfig):
     """tokens [B, S] int → final hidden states [B, S, D] (compute dtype)."""
     wte = params["wte"]
     tokens = torch.as_tensor(tokens, device=wte.device).long()
-    x = wte[tokens].to(cfg.dtype)
+    x = vocab_parallel_embed(wte, tokens, current_mesh(), cfg.dtype)
     positions = torch.arange(tokens.shape[1], device=wte.device)
     for layer in layers(params["blocks"]):
         x = run_block(_block, cfg.remat, x, layer, positions, cfg)
@@ -263,19 +277,21 @@ def _trunk(params: Dict[str, Any], tokens, cfg: LlamaConfig):
 
 
 def forward(params: Dict[str, Any], tokens, cfg: LlamaConfig) -> torch.Tensor:
-    """tokens [B, S] int → logits [B, S, padded_vocab] (compute dtype)."""
+    """tokens [B, S] int → logits [B, S, padded_vocab] (compute dtype);
+    under a mesh this rank's [B, S, padded_vocab / tp]."""
     x = _trunk(params, tokens, cfg)
-    return x @ params["lm_head"].to(cfg.dtype)
+    return vocab_parallel_logits(x, params["lm_head"].to(cfg.dtype),
+                                 current_mesh())
 
 
 def loss_terms(params: Dict[str, Any], tokens, targets, cfg: LlamaConfig):
     """(Σ nll over the targets >= 0, f32, through the fused softmax_xent on
-    the full logits; 0, the model having no auxiliary loss): `loss_fn`
-    before its division by the count, which a meshed train step takes over
-    the global batch."""
+    the full logits, or vocab_parallel_xent on this rank's under a mesh;
+    0, the model having no auxiliary loss): `loss_fn` before its division
+    by the count, which a meshed train step takes over the global batch."""
     logits = forward(params, tokens, cfg)
     targets = torch.as_tensor(targets, device=logits.device).long()
-    return softmax_xent(logits, targets).sum(), 0.0
+    return vocab_parallel_xent(logits, targets, current_mesh()).sum(), 0.0
 
 
 def loss_fn(

@@ -46,7 +46,18 @@ GLOBAL batch, whose rows are split over (dp, fsdp):
   each runs its experts on its dispatch slots and the combined outputs are
   summed over the group: no all-to-all, as in the reference's layout;
 - a rank's buffer holds min(C, T) slots an expert (T its own tokens):
-  only its tokens fill them.
+  only its tokens fill them;
+- with tp > 1 a rank holds F/tp of each expert's MLP columns (fc_w and
+  fc_b on "mlp", out_w on "mlp"; router_w and out_b whole). The ranks of
+  a tp group hold the same tokens and the same router, so they route
+  alike; the experts' input goes in by copy_over over (ep, tp), and the
+  out product's partial sums are summed over tp BEFORE the combine, with
+  out_b added after the sum: the combine and the gate's gradient then
+  see whole expert outputs, the same on every tp rank, and out_b counts
+  once. (Summing after the combine moves a [T, D] f32 tensor instead of
+  the [E·C, D] compute-dtype slots, about 0.8× the bytes at capacity
+  factor 1.25 and top-2, but needs out_b's share summed over ep and not
+  tp, and the gate's gradient summed over tp: two more collectives.)
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from ray_tpu_torch.parallel.mesh import (
     BATCH_AXES, all_gather, all_reduce, axis_index, axis_size, copy_over,
     current_mesh, sum_over,
 )
+from ray_tpu_torch.parallel.tensor import row_out
 
 
 def moe_capacity(num_tokens: int, num_experts: int, top_k: int,
@@ -205,8 +217,8 @@ def moe_mlp(x: torch.Tensor, params: Dict[str, Any], *, top_k: int,
 
     params hold ONE layer's tensors (no leading L): router_w [D, E],
     fc_w [E, D, F], fc_b [E, F], out_w [E, F, D], out_b [E, D] (under a
-    mesh: E/ep experts, this rank's). The reference's function, dispatched
-    by index (module docstring)."""
+    mesh: E/ep experts and F/tp columns, this rank's). The reference's
+    function, dispatched by index (module docstring)."""
     B, S, D = x.shape
     T = B * S
     E = params["router_w"].shape[-1]
@@ -221,8 +233,10 @@ def moe_mlp(x: torch.Tensor, params: Dict[str, Any], *, top_k: int,
         r = _global_queue(r, C, mesh)
         E_here, slots = params["fc_w"].shape[0], min(C, T)
         first = mesh.get_local_rank("ep") * E_here
-        # each ep rank uses these for its own experts' share of y
-        xt, gate = copy_over(xt, mesh, ("ep",)), copy_over(r.gate, mesh, ("ep",))
+        # each ep rank uses these for its own experts' share of y, each tp
+        # rank the experts' input for its own MLP columns
+        xt = copy_over(xt, mesh, ("ep", "tp"))
+        gate = copy_over(r.gate, mesh, ("ep",))
     here = r.keep & (r.expert >= first) & (r.expert < first + E_here)
     rows_here = E_here * slots
 
@@ -236,7 +250,8 @@ def moe_mlp(x: torch.Tensor, params: Dict[str, Any], *, top_k: int,
 
     h = torch.bmm(xin, params["fc_w"].to(dtype)) + params["fc_b"].to(dtype)[:, None, :]
     h = F.gelu(h, approximate="tanh")
-    out = torch.bmm(h, params["out_w"].to(dtype)) + params["out_b"].to(dtype)[:, None, :]
+    out = (row_out(torch.bmm(h, params["out_w"].to(dtype)), mesh)
+           + params["out_b"].to(dtype)[:, None, :])
 
     # combine: each token's k slots, weighted by the gate rounded to dtype,
     # summed in f32. A dropped choice reads some row at weight 0, each its

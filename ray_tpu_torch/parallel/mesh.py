@@ -10,16 +10,22 @@ process group of that mesh dimension.
   fsdp  data parallelism with params sharded (gathered for the step,
         gradients reduce-scattered)
   pp    pipeline stages (parallel/pipeline.py)
-  tp    tensor parallelism: not ported yet (a mesh with tp > 1 is refused)
+  tp    tensor parallelism (Megatron style, parallel/tensor.py): each rank
+        holds H/tp heads, F/tp MLP columns and V/tp vocabulary rows
   cp    context parallelism (ring attention): not ported yet
   ep    expert parallelism: each rank holds E/ep experts of every MoE layer
 
 A global batch is split over (dp, fsdp) in mesh order, so the ranks of one
-ep or pp group hold the same rows.
+ep, tp or pp group hold the same rows.
+
+Every collective the helpers below run is counted, per mesh axis, in
+`collectives` (a Counter the tests and chip_smoke.py read and clear), as
+the flash wrappers count their launches.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import datetime
 import os
@@ -159,11 +165,27 @@ def local_batch(mesh, batch: Dict[str, object]) -> Dict[str, object]:
 # Collectives over named axes: one per axis, on that dimension's group
 # --------------------------------------------------------------------------- #
 
-def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
-    """Sum `t` in place over the ranks of `axes`; returns it."""
+# collectives run by the helpers below since the last clear(), by mesh axis
+collectives: collections.Counter = collections.Counter()
+
+
+def _group(mesh, a: str):
+    collectives[a] += 1
+    return mesh.get_group(a)
+
+
+def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str],
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce `t` in place (a sum, or `op`) over the ranks of `axes`;
+    returns it."""
     for a in axes:
-        dist.all_reduce(t, group=mesh.get_group(a))
+        dist.all_reduce(t, op=op, group=_group(mesh, a))
     return t
+
+
+def all_reduce_max(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """The elementwise max of `t` over the ranks of `axes`, in place."""
+    return all_reduce(t, mesh, axes, dist.ReduceOp.MAX)
 
 
 def all_gather(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
@@ -172,15 +194,48 @@ def all_gather(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     out = t.contiguous()[None]
     for a in reversed(axes):        # innermost first
         parts = [torch.empty_like(out) for _ in range(mesh.size(AXIS_ORDER.index(a)))]
-        dist.all_gather(parts, out, group=mesh.get_group(a))
+        dist.all_gather(parts, out, group=_group(mesh, a))
         out = torch.cat(parts)
     return out
+
+
+def gather_dims(t: torch.Tensor, mesh, dims: Sequence[Tuple[str, int]]) -> torch.Tensor:
+    """`t`, a shard split over each (axis, dim) of `dims` (in mesh order),
+    with every rank's shard put back in its place along its dim."""
+    for a, dim in reversed(dims):   # innermost first
+        parts = [torch.empty_like(t) for _ in range(axis_size(mesh, (a,)))]
+        dist.all_gather(parts, t.contiguous(), group=_group(mesh, a))
+        t = torch.cat(parts, dim)
+    return t
+
+
+def reduce_scatter_dims(t: torch.Tensor, mesh,
+                        dims: Sequence[Tuple[str, int]]) -> torch.Tensor:
+    """The inverse of gather_dims for a sum: `t` summed over the ranks of
+    each (axis, dim) of `dims`, each rank keeping its own shard of it."""
+    for a, dim in dims:             # outermost first
+        chunks = [c.contiguous() for c in t.chunk(axis_size(mesh, (a,)), dim)]
+        t = torch.empty_like(chunks[0])
+        dist.reduce_scatter(t, chunks, group=_group(mesh, a))
+    return t
+
+
+def broadcast(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """`t` of the first rank of each of `axes`, in place."""
+    for a in axes:
+        group = _group(mesh, a)
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return t
 
 
 class _SumOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axes):
-        return all_reduce(t.clone(), mesh, axes)
+        if getattr(_local, "copy_sums", False):
+            t = t.clone()
+        else:
+            ctx.mark_dirty(t)
+        return all_reduce(t, mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
@@ -195,27 +250,36 @@ class _CopyOver(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g.clone(), ctx.mesh, ctx.axes), None, None
+        return all_reduce(g.contiguous(), ctx.mesh, ctx.axes), None, None
 
 
 def sum_over(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """The sum of `t` over the ranks of `axes`, differentiable. Every rank of
     the group goes on with the same sum into the same computation, so the
     backward hands each rank the gradient of its one copy (not the sum over
-    the copies, which would count it once per rank)."""
+    the copies, which would count it once per rank). `t` is summed in
+    place (under `sums_of_copies`, a copy of it): give it a fresh tensor
+    that nothing else reads (a product's output, as every caller does)."""
     return _SumOver.apply(t, mesh, tuple(axes))
 
 
 def copy_over(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """`t`, whose gradient is summed over the ranks of `axes`: for a value
     that every rank holds whole but each rank uses for its own share of a
-    sum (its experts' inputs and gates)."""
+    sum (its experts' inputs and gates, a column-parallel product's
+    input). The incoming gradient is summed in place, as Megatron's f sums
+    it: the result must feed products, each of whose backward makes a
+    gradient of its own, not a sum that would hand the same one on."""
     return _CopyOver.apply(t, mesh, tuple(axes))
 
 
 # The mesh the model runs under: model code that needs it (the MoE layer's
-# global capacity and expert shards, GPT-2's pipeline) reads it here; the
-# train step enters it around the forward and backward.
+# global capacity and expert shards, GPT-2's pipeline, the tensor-parallel
+# products) reads it here; the train step enters it around the forward and
+# backward. Per thread: on the card the autograd engine runs the backward
+# on a thread of its own, so code that runs the forward again there takes
+# the mesh it ran under along: a checkpointed block enters it
+# (models/common.py's `run_block`), a chunk of GPT-2's loss is given it.
 _local = threading.local()
 
 
@@ -231,3 +295,16 @@ def use_mesh(mesh):
 
 def current_mesh():
     return getattr(_local, "mesh", None)
+
+
+@contextlib.contextmanager
+def sums_of_copies():
+    """Within, on this thread, sum_over sums a copy of its input and leaves
+    the input as it was: for code that keeps the products it sums (a
+    selective checkpoint that saves them for its recompute)."""
+    prev = getattr(_local, "copy_sums", False)
+    _local.copy_sums = True
+    try:
+        yield
+    finally:
+        _local.copy_sums = prev

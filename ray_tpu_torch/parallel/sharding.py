@@ -6,7 +6,8 @@ reference turns the table into PartitionSpecs and lets XLA move the data;
 here it becomes one DTensor placement per mesh dimension, and the state of
 a meshed train step holds each parameter as a DTensor with those
 placements over its DeviceMesh (its local shard is what the optimizer
-updates).
+updates). The model computes on `working_tree`'s local tensors: each shard
+gathered over the batch axes, still split over tp, ep and pp.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+from ray_tpu_torch.parallel.mesh import AXIS_ORDER, BATCH_AXES, gather_dims
 
 # logical axis → mesh axis (or tuple of mesh axes). None = replicated.
 DEFAULT_RULES: Dict[str, Any] = {
@@ -81,8 +82,9 @@ def shard_tree(mesh, tree: Any, logical_tree: Any, rules=None) -> Any:
             n = mesh.size(AXIS_ORDER.index(a))
             if isinstance(p, Shard) and tree.shape[p.dim] % n:
                 raise ValueError(
-                    f"dim {p.dim} of a {tuple(tree.shape)} parameter "
-                    f"({tuple(logical_tree)}) not divisible by {a}={n}")
+                    f"dim {p.dim} ({logical_tree[p.dim]!r}) of a "
+                    f"{tuple(tree.shape)} parameter ({tuple(logical_tree)}) "
+                    f"not divisible by {a}={n}")
         with torch.no_grad():
             return distribute_tensor(tree.detach(), mesh, placements)
     return {k: shard_tree(mesh, v, logical_tree[k], rules) for k, v in tree.items()}
@@ -102,3 +104,24 @@ def gather_tree(tree: Any) -> Any:
             tree.to_local().detach(), tree.device_mesh, tree.placements,
             run_check=False, shape=tree.shape, stride=tree.stride())
         return local.full_tensor().clone()
+
+
+def batch_gather_dims(placements) -> list:
+    """The (batch axis, dim) pairs that shard a tensor of these placements,
+    in mesh order: what `working_tree` gathers it over."""
+    from torch.distributed.tensor import Shard
+
+    return [(a, p.dim) for a, p in zip(AXIS_ORDER, placements)
+            if a in BATCH_AXES and isinstance(p, Shard)]
+
+
+def working_tree(tree: Any) -> Any:
+    """This rank's working copy of a (nested) dict of DTensors, the tensors
+    the model computes on: each local shard gathered over the batch axes
+    (dp, fsdp) that shard it, still split over tp, ep and pp. Detached
+    local tensors; the meshed train step and a meshed forward both use it."""
+    if isinstance(tree, dict):
+        return {k: working_tree(v) for k, v in tree.items()}
+    with torch.no_grad():
+        local = tree.to_local().detach()
+    return gather_dims(local, tree.device_mesh, batch_gather_dims(tree.placements))

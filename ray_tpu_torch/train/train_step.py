@@ -6,21 +6,24 @@ JAX step is one jitted function over a mesh with donated buffers; here the
 step runs eagerly and updates the parameters and the optimizer's moments in
 place.
 
-With `mesh` (parallel/mesh.py: dp, fsdp, ep and pp; tp and cp are refused)
+With `mesh` (parallel/mesh.py: dp, fsdp, ep, tp and pp; cp is refused)
 the step is still the reference's function of the GLOBAL batch, and every
 rank takes its rows of it. Each parameter lives as a DTensor whose
 placements come from the model's `logical_axes` and the rule table
 (parallel/sharding.py); its local shard is what the optimizer updates, and
 the moments follow it. A step gathers each shard over the batch axes that
-shard it, runs the forward and backward on this rank's rows with the loss
-divided by the global count of targets, then sums each gradient over the
-ranks whose contributions are disjoint: the batch axes (reduce-scattered
-back to the shard where they shard it) and, for a parameter every pipeline
-stage holds, pp (the first stage's embedding plus the last stage's head).
-Never over ep: the ranks of an ep group compute the same loss, and the MoE
-layer's collectives hand each the whole gradient. The clipping norm counts
-every element once. A mesh of one device runs the same code, with its
-collectives on groups of one.
+shard it (sharding.working_tree), runs the forward and backward on this
+rank's rows with the loss divided by the global count of targets, then
+sums each gradient over the ranks whose contributions are disjoint: the
+batch axes (reduce-scattered back to the shard where they shard it) and,
+for a parameter every pipeline stage holds, pp (the first stage's
+embedding plus the last stage's head). Never over ep or tp: the ranks of
+an ep or tp group hold the same rows and compute the same loss; the MoE
+layer's and the tensor-parallel products' collectives (parallel/tensor.py)
+hand each rank the whole gradient of what it holds, its shard of a leaf
+split over tp or ep, or the whole of a leaf it holds whole. The clipping
+norm counts every element once. A mesh of one device runs the same code,
+with its collectives on groups of one.
 """
 
 from __future__ import annotations
@@ -33,14 +36,15 @@ from typing import (
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.parallel.mesh import (
-    AXIS_ORDER, BATCH_AXES, all_reduce, axis_size, local_batch, mesh_spec,
-    use_mesh,
+    AXIS_ORDER, BATCH_AXES, all_reduce, broadcast, local_batch, mesh_spec,
+    reduce_scatter_dims, use_mesh,
 )
-from ray_tpu_torch.parallel.sharding import shard_tree
+from ray_tpu_torch.parallel.sharding import (
+    batch_gather_dims, shard_tree, working_tree,
+)
 
 _f32 = np.float32
 
@@ -254,15 +258,22 @@ def _make_train_step(model, cfg, optimizer, generator, device, mesh=None,
 
 def _mesh_rules(model, cfg, mesh, rules):
     """The reference's checks of a mesh plan (ray_tpu/train/train_step.py),
-    and the refusal of what is not ported yet; returns the rules, with the
-    layer stack on pp for a pipelined plan."""
+    the widths tp must divide, and the refusal of what is not ported yet;
+    returns the rules, with the layer stack on pp for a pipelined plan."""
     spec = mesh_spec(mesh)
-    if spec.tp > 1 or spec.cp > 1:
+    if spec.cp > 1:
         raise NotImplementedError(
-            f"tp={spec.tp}, cp={spec.cp}: tensor parallelism and context "
-            "parallelism (ring attention) are not ported yet; they come with "
-            "the tensor-parallel slice and the ring-attention slice after it"
+            f"cp={spec.cp}: context parallelism (ring attention) is not "
+            "ported yet; it comes with the ring-attention slice"
         )
+    widths = {"n_head": cfg.n_head, "d_ff": cfg.d_ff,
+              "padded_vocab": cfg.padded_vocab}
+    if model is llama:
+        widths["n_kv_head"] = cfg.n_kv_head
+    for name, n in widths.items():
+        if n % spec.tp:
+            raise ValueError(f"{name}={n} not divisible by tp={spec.tp}: "
+                             "tensor parallelism splits it over the tp axis")
     if spec.pp > 1:
         if model is not gpt2:
             raise NotImplementedError(
@@ -286,10 +297,11 @@ class _LeafPlan(NamedTuple):
     # gathered over them for the step, its gradient reduce-scattered back
     gather: List[Tuple[str, int]]
     summed: Tuple[str, ...]     # the other axes its gradient is summed over
-    # ep, where it is replicated: every ep rank computes the same gradient,
-    # but kernels that accumulate in a run-dependent order (the embedding's
-    # backward) round it differently, so ep rank 0's is handed to the others
-    # and the replicas never drift apart
+    # ep and tp, where it is replicated: every rank of the group computes
+    # the same gradient, but kernels that accumulate in a run-dependent
+    # order (the embedding's backward) may round it differently, so the
+    # first rank's is handed to the others and the replicas never drift
+    # apart
     copied: Tuple[str, ...]
     sharded: Tuple[str, ...]    # every axis that shards it (for the norm)
 
@@ -300,34 +312,10 @@ def _leaf_plan(placements) -> _LeafPlan:
     shard = {a: p.dim for a, p in zip(AXIS_ORDER, placements)
              if isinstance(p, Shard)}
     return _LeafPlan(
-        gather=[(a, shard[a]) for a in BATCH_AXES if a in shard],
+        gather=batch_gather_dims(placements),
         summed=tuple(a for a in BATCH_AXES + ("pp",) if a not in shard),
-        copied=() if "ep" in shard else ("ep",),
+        copied=tuple(a for a in ("ep", "tp") if a not in shard),
         sharded=tuple(shard))
-
-
-def _broadcast(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """`t` of the first rank of each of `axes`, in place."""
-    for a in axes:
-        group = mesh.get_group(a)
-        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
-    return t
-
-
-def _gather(t: torch.Tensor, gather, mesh) -> torch.Tensor:
-    for a, dim in reversed(gather):     # innermost first
-        parts = [torch.empty_like(t) for _ in range(axis_size(mesh, (a,)))]
-        dist.all_gather(parts, t.contiguous(), group=mesh.get_group(a))
-        t = torch.cat(parts, dim)
-    return t
-
-
-def _reduce_scatter(t: torch.Tensor, gather, mesh) -> torch.Tensor:
-    for a, dim in gather:               # outermost first
-        chunks = [c.contiguous() for c in t.chunk(axis_size(mesh, (a,)), dim)]
-        t = torch.empty_like(chunks[0])
-        dist.reduce_scatter(t, chunks, group=mesh.get_group(a))
-    return t
 
 
 def _grad_norm(grads, plans, mesh) -> torch.Tensor:
@@ -367,16 +355,18 @@ def _make_mesh_train_step(model, cfg, optimizer, generator, device, mesh,
         tokens = torch.as_tensor(rows["tokens"], device=device)
         targets = torch.as_tensor(rows["targets"], device=device)
         count = all_reduce((targets >= 0).sum(), mesh, BATCH_AXES).clamp(min=1)
-        work = [_gather(p.detach(), plan.gather, mesh).requires_grad_(True)
-                for p, plan in zip(shards, plans)]
+        work = param_leaves(working_tree(state["params"]))
+        for w in work:
+            w.requires_grad_(True)
         with use_mesh(mesh):
             total, aux_term = model.loss_terms(
                 _unflatten(names, work), tokens, targets, cfg)
             (total / count + aux_term).backward()
         for p, w, plan in zip(shards, work, plans):
             g = w.grad if w.grad is not None else torch.zeros_like(w)
-            g = all_reduce(_reduce_scatter(g, plan.gather, mesh), mesh, plan.summed)
-            p.grad = _broadcast(g, mesh, plan.copied)
+            g = all_reduce(reduce_scatter_dims(g, mesh, plan.gather), mesh,
+                           plan.summed)
+            p.grad = broadcast(g, mesh, plan.copied)
         norm = _grad_norm([p.grad for p in shards], plans, mesh)
         opt.step(grad_norm=norm)
         state["step"] += 1

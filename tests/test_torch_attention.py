@@ -166,7 +166,8 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
             "ray_tpu_torch/train/train_step.py",
             "ray_tpu_torch/parallel/mesh.py",
             "ray_tpu_torch/parallel/sharding.py",
-            "ray_tpu_torch/parallel/pipeline.py"} <= names
+            "ray_tpu_torch/parallel/pipeline.py",
+            "ray_tpu_torch/parallel/tensor.py"} <= names
     bad = [
         (str(f.relative_to(REPO)), name)
         for f in files for name in _imports(f)

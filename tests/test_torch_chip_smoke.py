@@ -16,6 +16,7 @@ import importlib.util
 import pathlib
 import subprocess
 import types
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -255,3 +256,136 @@ def test_pipeline_check_on_the_cpu(smoke):
 def test_multi_card_run_says_when_it_did_not_take_place(smoke, capsys):
     smoke.multi_card("no card", {})
     assert "multi-card run: did not take place (one card" in capsys.readouterr().out
+
+
+def test_tp_collectives_formula(smoke):
+    """tp_collectives_per_step by hand: 4 a layer (2 row-parallel sums in
+    the forward, 2 column-parallel gradient sums in the backward), the
+    embedding's sum, the head's gradient sum, the loss's 2, then a norm
+    sum for each distinct set of axes sharding a tp-split leaf and a
+    broadcast of each leaf held whole over tp."""
+    from ray_tpu_torch.models import gpt2, llama
+
+    # GPT-2: keys (fsdp, tp), (tp,); whole: wpe, ln1/ln2 scale and bias,
+    # proj_b, out_b, lnf scale and bias
+    assert smoke.tp_collectives_per_step(gpt2, gpt2.gpt2_124m()) == 4 * 12 + 4 + 2 + 9
+    # MoE: keys also (fsdp, ep, tp), (ep, tp); whole: router_w and the
+    # experts' out_b instead of out_b
+    assert smoke.tp_collectives_per_step(
+        gpt2, gpt2.gpt2_124m(moe_experts=8)) == 4 * 12 + 4 + 4 + 10
+    # Llama: key (fsdp, tp); whole: the three RMSNorm scales
+    assert smoke.tp_collectives_per_step(llama, llama.llama_1b()) == 4 * 22 + 4 + 1 + 3
+    # a checkpointed block's recomputed forward stops after the last tensor
+    # it saved: the sum out of attention runs again, the MLP's does not
+    assert smoke.tp_collectives_per_step(
+        llama, llama.llama_1b(remat=True)) == 5 * 22 + 4 + 1 + 3
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_tp_collectives_formula_counts_a_step(smoke, world_one, remat):
+    """The formula against the collectives a one-rank mesh step runs."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train.train_step import make_gpt2_train_step, synthetic_batch
+
+    cfg = gpt2.gpt2_tiny(dtype=torch.float32, remat=remat)
+    run = smoke.train_run(make_gpt2_train_step, cfg, synthetic_batch(cfg, 2),
+                          "cpu", 1, world_one)
+    assert run["collectives"]["tp"] == 2 * smoke.tp_collectives_per_step(gpt2, cfg)
+
+
+def test_parallel_tp_phase_on_the_cpu(smoke, world_one, capsys, monkeypatch):
+    """mesh_against_plain, the [parallel-tp] phase's function, at llama_tiny
+    (f32) over a one-rank gloo mesh: the mesh step held to the plain step,
+    no kernel launches on the CPU, the tp collectives the formula's; a
+    mesh run that ran other collectives than the formula says fails."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.train_step import make_llama_train_step
+
+    cfg = llama.llama_tiny(dtype=torch.float32)
+    run = smoke.mesh_against_plain("card", "parallel-tp", "llama_tiny", llama,
+                                   make_llama_train_step, cfg, 2, 2, world_one,
+                                   device="cpu")
+    assert run["launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+    assert run["collectives"]["tp"] == 3 * smoke.tp_collectives_per_step(llama, cfg)
+    out = capsys.readouterr().out
+    assert "collectives over tp: 48 in 3 steps (the formula: 48)" in out
+    assert '"mesh_tokens_per_s"' in out
+    formula = smoke.tp_collectives_per_step
+    monkeypatch.setattr(smoke, "tp_collectives_per_step",
+                        lambda model, cfg: formula(model, cfg) + 1)
+    with pytest.raises(SystemExit, match="collectives over tp"):
+        smoke.mesh_against_plain("card", "parallel-tp", "llama_tiny", llama,
+                                 make_llama_train_step, cfg, 2, 0, world_one,
+                                 device="cpu")
+
+
+def test_remat_against_mesh_over_gloo(smoke, world_one, monkeypatch):
+    """The [parallel-tp] remat step on llama_tiny at world 1 over gloo: held
+    to the meshed step without remat (the same loss, the tp collectives of
+    the formula with remat, no kernel launched off the card); a rerun
+    left without the mesh, which runs fewer collectives, fails it."""
+    from ray_tpu_torch.models import common, llama
+    from ray_tpu_torch.train.train_step import make_llama_train_step
+
+    cfg = llama.llama_tiny(dtype=torch.float32)
+    ref = smoke.mesh_against_plain("card", "parallel-tp", "llama_tiny", llama,
+                                   make_llama_train_step, cfg, 2, 0, world_one,
+                                   device="cpu")
+    remat = replace(cfg, remat=True)
+    launches = smoke.remat_against_mesh("card", world_one, ref, remat, 2, device="cpu")
+    assert launches == {"flash_fwd": 0, "flash_bwd": 0}
+    monkeypatch.setattr(common, "current_mesh", lambda: None)
+    with pytest.raises(SystemExit, match="remat step"):
+        smoke.remat_against_mesh("card", world_one, ref, remat, 2, device="cpu")
+
+
+def test_rank_attention_shape_of_each_multi_card_plan(smoke):
+    """The flash kernels' shape on one rank of each multi-card plan: the
+    batch over dp·fsdp, the heads and kv heads over tp; no plan on one
+    card."""
+    assert smoke.multi_card_plans(1) == []
+    shapes = {p["name"]: smoke.rank_attention_shape(p)
+              for count in (2, 4) for p in smoke.multi_card_plans(count)}
+    assert shapes == {
+        "gpt2_124m_fsdp2": ((12, 12, 1024, 64), 12),
+        "llama_1b_tp2": ((8, 16, 2048, 64), 4),
+        "gpt2_124m_fsdp4": ((6, 12, 1024, 64), 12),
+        "llama_1b_tp4": ((8, 8, 2048, 64), 2),
+        "gpt2_124m_fsdp2tp2": ((12, 6, 1024, 64), 6),
+    }
+
+
+def test_multi_card_ranks_over_gloo(smoke):
+    """run_ranks and mesh_rank, the processes of a multi-card run, over
+    gloo on the CPU: llama_tiny over tp 2 against the same plan at world
+    1. Both ranks report the same first loss, near world 1's (the
+    row-parallel sums round in another order); the collectives over tp
+    are the formula's for the 1 + TRAIN_STEPS steps, no kernel launched
+    (plain versions on the CPU); hold_to_world_one accepts both and
+    rejects a world-1 loss that moved."""
+    from ray_tpu_torch.models import llama
+
+    plan = dict(model="llama", config="llama_tiny", batch=2)
+    one = smoke.run_ranks({**plan, "name": "test_w1", "mesh": {}}, 1,
+                          backend="gloo", device="cpu")
+    two = smoke.run_ranks({**plan, "name": "test_tp2", "mesh": {"tp": 2}}, 2,
+                          backend="gloo", device="cpu")
+    assert two[0]["first"]["loss"] == two[1]["first"]["loss"]
+    assert abs(two[0]["first"]["loss"] - one[0]["first"]["loss"]) <= smoke.LOSS_TOL
+    want = (1 + smoke.TRAIN_STEPS) * smoke.tp_collectives_per_step(
+        llama, llama.llama_tiny(remat=False))
+    for run in one + two:
+        assert run["collectives"]["tp"] == want
+        assert run["launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+        assert run["peak_memory_bytes"] is None
+    # the multi-card check holds each run to world 1, a tp group of one
+    # included, and fails one whose loss moved
+    for p, ranks in (({**plan, "name": "test_w1", "mesh": {}}, one),
+                     ({**plan, "name": "test_tp2", "mesh": {"tp": 2}}, two)):
+        smoke.hold_to_world_one("card", p, ranks, one[0], device="cpu")
+    moved = {**one[0], "first": {**one[0]["first"],
+                                 "loss": one[0]["first"]["loss"] + 0.01}}
+    with pytest.raises(SystemExit, match="disagrees with the world-1 step"):
+        smoke.hold_to_world_one("card", {**plan, "name": "test_tp2",
+                                         "mesh": {"tp": 2}}, two, moved,
+                                device="cpu")

@@ -5,7 +5,8 @@ collectives, on groups of one, and DTensor placements) and computes the
 plain step.
 
 The multi-process runs (dp, fsdp, ep, pp over 4 ranks) are in
-tests/test_torch_parallel_train.py.
+tests/test_torch_parallel_train.py, those over tp in
+tests/test_torch_parallel_tp.py.
 """
 
 import itertools
@@ -230,7 +231,8 @@ class CollectiveCounter:
     tgpt2.gpt2_tiny(dtype=torch.float32, moe_experts=4, moe_top_k=2,
                     moe_capacity_factor=1.0),
     tllama.llama_tiny(dtype=torch.float32),
-], ids=["gpt2", "gpt2_moe", "llama"])
+    tgpt2.gpt2_tiny(dtype=torch.float32, loss_chunk=32),
+], ids=["gpt2", "gpt2_moe", "llama", "gpt2_chunked_loss"])
 def test_world_one_mesh_runs_the_mesh_code_and_the_plain_step(world_one, cfg, monkeypatch):
     """A mesh of one device is no shortcut: its state holds DTensors with
     the rule table's placements, every step runs the collectives (on
@@ -276,3 +278,87 @@ def test_world_one_mesh_runs_the_mesh_code_and_the_plain_step(world_one, cfg, mo
                                     ttrain.named_leaves(full)):
         assert name == same
         torch.testing.assert_close(q, p.detach(), rtol=0, atol=1e-5)
+
+
+# the tp collectives of one meshed step at world 1, by hand. Forward: the
+# vocab-parallel embedding's sum (1), a row-parallel sum out of attention
+# and out of the MLP in each layer (2 L), the cross-entropy's max and its
+# [Σexp, target logit] sum (2). Backward: a column-parallel input's
+# gradient sum into qkv and into the MLP in each layer (2 L), the LM
+# head's input (1). The step: one sum of squares for each distinct set of
+# axes that shards a tp-split leaf, and one broadcast over tp of each leaf
+# held whole on every tp rank.
+TP_COLLECTIVES = {
+    # 2 layers; keys (fsdp, tp) and (tp,) [qkv_b, fc_b]; whole: wpe,
+    # ln1/ln2 scale and bias, proj_b, out_b, lnf scale and bias
+    "gpt2": (4 * 2 + 4) + 2 + 9,
+    # keys (fsdp, tp), (tp,), (fsdp, ep, tp) [moe fc_w, out_w], (ep, tp)
+    # [moe fc_b]; whole: as dense without out_b, plus moe router_w, out_b
+    "gpt2_moe": (4 * 2 + 4) + 4 + 10,
+    # the key (fsdp, tp) only; whole: attn_norm, mlp_norm, final_norm
+    "llama": (4 * 2 + 4) + 1 + 3,
+}
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("gpt2", tgpt2.gpt2_tiny(dtype=torch.float32)),
+    ("gpt2_moe", tgpt2.gpt2_tiny(dtype=torch.float32, moe_experts=4,
+                                 moe_top_k=2)),
+    ("llama", tllama.llama_tiny(dtype=torch.float32)),
+], ids=["gpt2", "gpt2_moe", "llama"])
+def test_tp_collectives_of_a_step_equal_the_formula(world_one, name, cfg):
+    """A one-rank mesh goes through the tensor-parallel code: each step
+    runs the tp collectives counted above, on a group of one, and those
+    over the other axes as before; the plain step runs none."""
+    model = tgpt2 if isinstance(cfg, tgpt2.GPT2Config) else tllama
+    make = (ttrain.make_gpt2_train_step if model is tgpt2
+            else ttrain.make_llama_train_step)
+    batch = ttrain.synthetic_batch(cfg, 2)
+    for mesh in (None, world_one):
+        bundle = make(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu", mesh=mesh)
+        tmesh.collectives.clear()
+        for _ in range(2):
+            bundle.step_fn(bundle.state, batch)
+        counted = dict(tmesh.collectives)
+        if mesh is None:
+            assert counted == {}
+    assert counted["tp"] == 2 * TP_COLLECTIVES[name], counted
+    assert counted["fsdp"] > 0 and counted["dp"] > 0
+
+
+@pytest.mark.parametrize("cfg", [
+    tgpt2.gpt2_tiny(dtype=torch.float32, remat=True, loss_chunk=32),
+    tgpt2.gpt2_tiny(dtype=torch.float32, remat="dots"),
+    tllama.llama_tiny(dtype=torch.float32, remat=True),
+], ids=["gpt2_remat_chunked_loss", "gpt2_remat_dots", "llama_remat"])
+def test_a_backward_on_another_thread_reruns_under_the_mesh(world_one, cfg):
+    """On the card the autograd engine runs the backward on a thread of its
+    own, where no mesh is entered: a checkpointed block and a chunk of the
+    loss run again there under the mesh they ran under, with their tp
+    collectives and the gradients of a backward under the mesh on this
+    thread (the train step's), to f32 rounding: another thread's products
+    sum in another order (4.8e-7 apart at most, measured)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    model = tgpt2 if isinstance(cfg, tgpt2.GPT2Config) else tllama
+    batch = ttrain.synthetic_batch(cfg, 2)
+    runs = {}
+    for where in ("here", "thread"):
+        params = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        leaves = ttrain.param_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        with tmesh.use_mesh(world_one):
+            total, _ = model.loss_terms(params, batch["tokens"], batch["targets"], cfg)
+            tmesh.collectives.clear()
+            if where == "here":
+                total.backward()
+        if where == "thread":
+            with ThreadPoolExecutor(1) as pool:
+                pool.submit(total.backward).result()
+        runs[where] = (dict(tmesh.collectives), [p.grad for p in leaves])
+    assert runs["here"][0]["tp"] > 0
+    assert runs["thread"][0] == runs["here"][0]
+    for a, b in zip(runs["here"][1], runs["thread"][1]):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)

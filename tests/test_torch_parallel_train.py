@@ -80,11 +80,19 @@ def jax_reference(plan, workdir: Path, devices):
                   optimizer=jtrain.default_optimizer(warmup=2, total_steps=10),
                   rng=jax.random.PRNGKey(0))
     params = bundle.state["params"]
+    if plan.get("random_biases"):
+        # nonzero biases (the init's are 0), so that a bias added on every
+        # tp rank before a row-parallel sum, tp times, shows
+        rng = np.random.default_rng(3)
+        params = jax.tree_util.tree_map_with_path(
+            lambda path, p: jax.device_put(
+                p + rng.normal(0, 0.02, p.shape).astype(p.dtype), p.sharding)
+            if path[-1].key.endswith(("_b", "_bias")) else p, params)
     shard_shapes = {n: list(p.sharding.shard_shape(p.shape))
                     for n, p in flat(params)}
     init = dict(flat(jax.device_get(params)))   # before the donating step
     data = batches(cfg, plan)
-    state, losses, norms = bundle.state, [], []
+    state, losses, norms = {**bundle.state, "params": params}, [], []
     for b in data:
         state, m = bundle.step_fn(state, b)
         losses.append(float(m["loss"]))
@@ -275,10 +283,19 @@ def test_gpt2_dp2_pp2_matches_jax(pp_runs):
     ("llama_with_pp", "NotImplementedError", "pipeline"),
     ("n_layer_not_divisible", "ValueError", "not divisible"),
     ("batch_not_divisible_by_microbatches", "ValueError", "not divisible"),
-    ("tp2", "NotImplementedError", "tensor-parallel slice"),
+    ("tp_not_dividing_kv_heads", "ValueError", "not divisible"),
     ("cp2", "NotImplementedError", "ring-attention slice"),
 ])
 def test_mesh_plan_refusals(pp_runs, case, error, match):
     for _, results in pp_runs[1]["refusals"]:
         assert results[case].startswith(error + ":"), results[case]
         assert match in results[case], results[case]
+
+
+def test_shard_tree_names_the_tp_axis(pp_runs):
+    """Placing llama_tiny's 2 kv heads over tp 4: the error names the
+    logical axis, the mesh axis and its size."""
+    for _, results in pp_runs[1]["refusals"]:
+        msg = results["shard_tree_tp_not_dividing"]
+        assert msg.startswith("ValueError:"), msg
+        assert "('heads')" in msg and "not divisible by tp=4" in msg, msg
