@@ -5,10 +5,12 @@
     python3 chip_smoke.py --profile    # also torch.profiler breakdowns of
                                        # one request's and one training
                                        # step's device time by kernel, on
-                                       # every model path
+                                       # every model path (and, with 2-4
+                                       # cards, of every rank of each
+                                       # multi-card run)
     python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.multi_card_check())"
                                        # on 2-4 cards: only the multi-card
-                                       # runs (fsdp, tp) and the world-1
+                                       # runs (fsdp, tp, cp) and the world-1
                                        # steps they are held to
     python3 chip_smoke.py --compare-fwd OLD/flash_fwd.cu
     python3 chip_smoke.py --compare-bwd OLD/flash_bwd.cu
@@ -104,8 +106,25 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    fsdp on every card, llama_1b over tp 2 (tp 4 on four cards) and, on
    four, GPT-2-124M over fsdp2·tp2 (multi_card_plans), each held to its
    model's world-1 mesh step; with one card it says that run did not take
-   place.
-12. Print the kernels line (each kernel's numbers by model path), the card's
+   place. [parallel-cp] gpt2_124m(attention_impl="ring") at B 24 x 1024,
+   1 + 8 steps, through ring attention on a cp group of one, held to the
+   plain step as [parallel] is; the collectives over cp counted against
+   cp_collectives_per_step on every mesh path. With 2 to 4 cards the
+   multi-card runs add GPT-2-124M over cp 2 (cp 4 on four cards) and, on
+   four, llama_1b over cp2·tp2: the ring over NCCL between cards.
+12. [ring]: ring attention's step schedule (ops/ring_attention.py's
+   virtual ring, all cp chunks on this card) at GPT-2-124M's attention
+   [24, 12, 1024, 64] and llama_1b's [8, 32, 2048, 64] in 4 chunks,
+   forward and backward: launches against ring_launches (cp rank r
+   launches each kernel r + 1 times; counts set to 0 just before, read
+   just after), held to the whole-sequence kernels and to the same
+   schedule on the plain versions, timed beside the whole-sequence
+   kernels; and each kernel held and timed at a chunk's shape at each
+   kind of offsets the ring gives it (a kv chunk wholly in the past, the
+   diagonal one at a non-zero offset, one wholly in the causal future),
+   also at each multi-card cp plan's rank shape. It runs after the model
+   paths, whose host-bound mesh steps it would otherwise precede.
+13. Print the kernels line (each kernel's numbers by model path), the card's
    name and power limit, and last the result line {"ok": true, ...}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -163,6 +182,17 @@ GRAD_REL_TOL = 2e-2
 # (the scale applied to f32 sums instead of to q and k at hd 128: 2.7e-3 to
 # 3.2e-3).
 MEAN_REL_TOL = 1e-4
+# [ring]: ring attention's gradients against the whole-sequence backward
+# kernel, mean |difference| over mean |reference|. The ring rounds each
+# chunk pair's dq, dk and dv to bf16 before its f32 sum (as the
+# reference's ring does), the whole kernel rounds once, so most entries
+# move by up to cp bf16 half-steps of their parts (cp 4, measured on an
+# H100: 1.00e-3 to 1.63e-3 at GPT-2-124M's and llama_1b's attention, the
+# max rel_err 5.3e-3, inside GRAD_REL_TOL; the CPU's plain versions give
+# the same). The tight check is the same schedule on the plain versions,
+# held to MEAN_REL_TOL (measured on an H100: 2.5e-6 to 5.3e-6).
+RING_WHOLE_MEAN_REL_TOL = 4e-3
+RING_CP = 4
 # training path, flash kernels vs the plain "xla" attention path of the
 # same model and batch: the loss (about 11.0) and each parameter's
 # gradient relative to its max-abs. The plain path rounds the logits to
@@ -641,6 +671,48 @@ def compare_backward(src: str, gen):
                  f"{errs}")
 
 
+def backward_case(name, q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True,
+                  library=None):
+    """flash_bwd against mha_backward_plain on the same inputs, timed (the
+    wrapper and its C call alone); fails outside GRAD_REL_TOL and
+    MEAN_REL_TOL. Returns (row, (dq, dk, dv) of the kernel)."""
+    from ray_tpu_torch.ops import attention as A
+
+    args = (q, k, v, o, lse, do, q_off, kv_off)
+    out = A.mha_backward_kernel(*args, causal=causal)
+    ref = A.mha_backward_plain(*args, causal=causal)
+    torch.cuda.synchronize()
+    errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), out, ref)}
+    max_abs = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(out, ref))
+    mean_errs = {n: mean_rel_err(a, b)
+                 for n, a, b in zip(("dq", "dk", "dv"), out, ref)}
+    del ref
+    ms = cuda_ms(lambda: A.mha_backward_kernel(*args, causal=causal))
+    kernel_ms = cuda_ms(backward_call(*args, causal=causal))
+    plain_ms = cuda_ms(lambda: A.mha_backward_plain(*args, causal=causal),
+                       iters=3, warmup=1)
+    library_ms = cuda_ms(library) if library else None
+    bound_ms, bound_by, nbytes, flops = attention_bwd_bound(
+        q, k, q_off, kv_off, causal)
+    row = dict(case=name, shape=list(q.shape), skv=k.shape[2], q_off=q_off,
+               kv_off=kv_off, causal=causal, rel_err=errs,
+               mean_rel_err=mean_errs, max_abs_err=max_abs,
+               ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               library="sdpa flash backward alone" if library else None,
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               flops=flops, bound_share=bound_ms / ms)
+    log(f"[kernel-bwd] {json.dumps(row)}")
+    if not all(e <= GRAD_REL_TOL for e in errs.values()):
+        fail(f"flash_bwd case {name}: relative errors {errs} "
+             f"(tol {GRAD_REL_TOL})")
+    if not all(e <= MEAN_REL_TOL for e in mean_errs.values()):
+        fail(f"flash_bwd case {name}: mean relative errors {mean_errs} "
+             f"(tol {MEAN_REL_TOL})")
+    return row, out
+
+
 def backward_cases(gen):
     from ray_tpu_torch.ops import attention as A
 
@@ -648,41 +720,7 @@ def backward_cases(gen):
         return [torch.randn(B, H, S, hd, generator=gen, device="cuda",
                             dtype=torch.bfloat16) for _ in range(4)]
 
-    def check(name, q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True,
-              library=None):
-        args = (q, k, v, o, lse, do, q_off, kv_off)
-        out = A.mha_backward_kernel(*args, causal=causal)
-        ref = A.mha_backward_plain(*args, causal=causal)
-        torch.cuda.synchronize()
-        errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), out, ref)}
-        max_abs = max((a.float() - b.float()).abs().max().item()
-                      for a, b in zip(out, ref))
-        mean_errs = {n: mean_rel_err(a, b)
-                     for n, a, b in zip(("dq", "dk", "dv"), out, ref)}
-        del ref
-        ms = cuda_ms(lambda: A.mha_backward_kernel(*args, causal=causal))
-        kernel_ms = cuda_ms(backward_call(*args, causal=causal))
-        plain_ms = cuda_ms(lambda: A.mha_backward_plain(*args, causal=causal),
-                           iters=3, warmup=1)
-        library_ms = cuda_ms(library) if library else None
-        bound_ms, bound_by, nbytes, flops = attention_bwd_bound(
-            q, k, q_off, kv_off, causal)
-        row = dict(case=name, shape=list(q.shape), skv=k.shape[2], q_off=q_off,
-                   kv_off=kv_off, causal=causal, rel_err=errs,
-                   mean_rel_err=mean_errs, max_abs_err=max_abs,
-                   ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                   library_ms=library_ms,
-                   library="sdpa flash backward alone" if library else None,
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                   flops=flops, bound_share=bound_ms / ms)
-        log(f"[kernel-bwd] {json.dumps(row)}")
-        if not all(e <= GRAD_REL_TOL for e in errs.values()):
-            fail(f"flash_bwd case {name}: relative errors {errs} "
-                 f"(tol {GRAD_REL_TOL})")
-        if not all(e <= MEAN_REL_TOL for e in mean_errs.values()):
-            fail(f"flash_bwd case {name}: mean relative errors {mean_errs} "
-                 f"(tol {MEAN_REL_TOL})")
-        return row, out
+    check = backward_case
 
     def forward(q, k, v, causal=True):
         return A.mha_forward_kernel(q, k, v, causal=causal)
@@ -773,6 +811,8 @@ def backward_cases(gen):
     seen = {((LLAMA_TRAIN_BATCH, 16, 2048, 64), 4): "llama_tp2",
             ((mb, 12, 1024, 64), 12): "pipeline"}
     for plan in multi_card_plans(torch.cuda.device_count()):
+        if plan["mesh"].get("cp", 1) > 1:
+            continue        # a ring's chunks: ring_phase's rows
         shape, kv = rank_attention_shape(plan)
         key = f"rank_{plan['name']}"
         if (shape, kv) not in seen:
@@ -786,6 +826,199 @@ def backward_cases(gen):
         "causal B1 H32 S4096 hd128 (llama_7b gradient check shape)",
         q, k, v, o, lse, do, library=sdpa_backward(q, k, v, do, True))
     return rows
+
+
+# --------------------------------------------------------------------------- #
+# [ring]: ring attention's schedule on the card
+# --------------------------------------------------------------------------- #
+
+def ring_launches(cp: int, causal: bool = True) -> int:
+    """Each kernel's launches in one forward (or backward) of a virtual ring
+    of cp chunks (ops/ring_attention.py): cp rank r launches r + 1 times
+    under a causal mask (a kv chunk wholly in its future is skipped), cp
+    times without."""
+    return cp * (cp + 1) // 2 if causal else cp * cp
+
+
+@contextmanager
+def plain_ring():
+    """Within, the ring's schedule runs on the kernels' plain versions, on
+    the card too."""
+    from ray_tpu_torch.ops import attention as A, ring_attention as R
+
+    saved = R._mha_forward_bhsd, R._mha_backward_bhsd
+    R._mha_forward_bhsd, R._mha_backward_bhsd = (A.mha_forward_plain,
+                                                 A.mha_backward_plain)
+    try:
+        yield
+    finally:
+        R._mha_forward_bhsd, R._mha_backward_bhsd = saved
+
+
+def ring_run(q, k, v, do, cp: int):
+    """q, k, v [B, H, S, hd] as cp chunks through virtual_ring_attention,
+    forward and backward with the gradient do: (o, (dq, dk, dv)), each put
+    back together along S."""
+    from ray_tpu_torch.ops.ring_attention import virtual_ring_attention
+
+    chunks = [[c.contiguous().requires_grad_(True) for c in x.detach().chunk(cp, 2)]
+              for x in (q, k, v)]
+    out = virtual_ring_attention(*chunks)
+    grads = torch.autograd.grad(out, [c for cs in chunks for c in cs],
+                                [c.contiguous() for c in do.chunk(cp, 2)])
+    return (torch.cat(out, 2).detach(),
+            tuple(torch.cat(grads[i * cp:(i + 1) * cp], 2) for i in range(3)))
+
+
+def ring_schedule(q, k, v, do, cp: int, outs=None, lses=None):
+    """The ring's forward and backward schedules called directly (no
+    autograd) over the virtual ring of cp chunks of q, k, v and do: the
+    forward's (o, lse) by chunk, then the backward's (dq, dk, dv) joined
+    along S, from `outs` and `lses` where given (else the forward's). On
+    the kernels, or under plain_ring on the plain versions: given the
+    kernels' outputs, the plain backward is held on the same inputs."""
+    from ray_tpu_torch.ops import ring_attention as R
+
+    ring, scale = R._VirtualRing(cp), q.shape[-1] ** -0.5
+    qs, ks, vs, dos = ([c.contiguous() for c in x.detach().chunk(cp, 2)]
+                       for x in (q, k, v, do))
+    acc = R._ring_forward(ring, qs, ks, vs, True, scale)
+    fwd = [(o.to(q.dtype), lse) for o, lse in acc]
+    outs = outs or [o for o, _ in fwd]
+    lses = lses or [lse for _, lse in fwd]
+    grads = R._ring_backward(ring, qs, ks, vs, outs, lses, dos, True, scale)
+    return fwd, tuple(torch.cat([g[i] for g in grads], 2) for i in range(3))
+
+
+def ring_distance(o, grads, ref_o, ref_grads) -> dict:
+    """o's max |difference| and each gradient's rel_err and mean_rel_err
+    from a reference."""
+    names = ("dq", "dk", "dv")
+    return {"o": (o.float() - ref_o.float()).abs().max().item(),
+            "rel": {n: rel_err(a, b) for n, a, b in zip(names, grads, ref_grads)},
+            "mean": {n: mean_rel_err(a, b) for n, a, b in zip(names, grads, ref_grads)}}
+
+
+def ring_chunk_rows(name: str, q, k, v, o, lse, do, cp: int) -> dict:
+    """flash_fwd and flash_bwd at one ring chunk's shape [B, H, S/cp, hd]
+    (forward_case, backward_case: held to the plain versions, timed beside
+    the bound and SDPA), at each kind of offsets the ring gives them: a kv
+    chunk wholly in the past (no mask), the diagonal chunk at the last
+    rank's offset, and a chunk wholly in the causal future (which the ring
+    skips; no library call computes it). The backward takes the GLOBAL lse
+    of the whole sequence (`lse`). Rows fwd_<where> and <where>."""
+    Sc = q.shape[2] // cp
+
+    def chunk(x, i):
+        return x[:, :, i * Sc:(i + 1) * Sc].contiguous()
+
+    rows = {}
+    for where, qi, ki in (("past", 1, 0), ("diagonal", cp - 1, cp - 1),
+                          ("future", 0, 1)):
+        qc, kc, vc, oc, lc, dc = (chunk(x, i) for x, i in (
+            (q, qi), (k, ki), (v, ki), (o, qi), (lse, qi), (do, qi)))
+        label = f"{name}, ring chunk {where}: q@{qi * Sc} kv@{ki * Sc}"
+        causal_lib = {"past": False, "diagonal": True}.get(where)
+        rows[f"fwd_{where}"], _, _ = forward_case(
+            label, qc, kc, vc, qi * Sc, ki * Sc,
+            library=None if causal_lib is None else sdpa(qc, kc, vc, causal_lib))
+        rows[where], _ = backward_case(
+            label + ", global lse", qc, kc, vc, oc, lc, dc, qi * Sc, ki * Sc,
+            library=(None if causal_lib is None
+                     else sdpa_backward(qc, kc, vc, dc, causal_lib)))
+    return rows
+
+
+def ring_case(card: str, name: str, shape, cp: int, gen) -> dict:
+    """[ring] at one shape: q, k, v [B, H, S, hd] bf16 as cp chunks of S/cp
+    through the virtual ring, forward and backward, launches counted
+    (counts set to 0 just before, read just after) against ring_launches;
+    held to the whole-sequence kernels (o within O_TOL, each gradient
+    within GRAD_REL_TOL and RING_WHOLE_MEAN_REL_TOL) and to the same
+    schedule on the plain versions (o within O_TOL and lse within LSE_TOL
+    from q, k, v; each gradient within GRAD_REL_TOL and MEAN_REL_TOL from
+    the kernels' outputs and lse: ring_schedule);
+    timed beside the whole-sequence kernels; then ring_chunk_rows.
+    Returns the launches and the rows."""
+    from ray_tpu_torch.ops import attention as A
+
+    q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    o_w, lse_w = A.mha_forward_kernel(q, k, v)
+    g_w = A.mha_backward_kernel(q, k, v, o_w, lse_w, do)
+    reset_launches()
+    o, grads = ring_run(q, k, v, do, cp)
+    torch.cuda.synchronize()
+    launches = launches_since_reset()
+    whole = ring_distance(o, grads, o_w, g_w)
+    # the plain schedule's forward from q, k, v; its backward from the
+    # kernels' outputs and lse, so that each half is held on the same
+    # inputs (a bf16 step of o moves delta = rowsum(do·o), whose
+    # difference with dp cancels)
+    fwd, _ = ring_schedule(q, k, v, do, cp)
+    outs, lses = [o_c for o_c, _ in fwd], [lse for _, lse in fwd]
+    with plain_ring():
+        fwd_p, g_p = ring_schedule(q, k, v, do, cp, outs, lses)
+    plain = ring_distance(o, grads, torch.cat([o_c for o_c, _ in fwd_p], 2), g_p)
+    plain["lse"] = max((a - b).abs().max().item()
+                       for a, (_, b) in zip(lses, fwd_p))
+    del fwd, fwd_p, g_p, outs, lses
+    expected = ring_launches(cp)
+    ms = cuda_ms(lambda: ring_run(q, k, v, do, cp), iters=5)
+    whole_ms = cuda_ms(lambda: A.mha_backward_kernel(
+        q, k, v, *A.mha_forward_kernel(q, k, v), do), iters=5)
+    log("[ring] " + json.dumps(dict(
+        card=card, case=name, shape=list(shape), cp=cp, launches=launches,
+        expected_launches=expected, vs_whole_sequence=whole,
+        vs_plain_schedule=plain, ring_fwd_bwd_ms=ms,
+        whole_sequence_fwd_bwd_ms=whole_ms)))
+    if launches != {"flash_fwd": expected, "flash_bwd": expected}:
+        fail(f"ring {name}: launches {launches}, the formula says {expected} each")
+    for against, dist_, mean_tol in (("the whole-sequence kernels", whole,
+                                      RING_WHOLE_MEAN_REL_TOL),
+                                     ("the plain schedule", plain, MEAN_REL_TOL)):
+        if not (dist_["o"] <= O_TOL and dist_.get("lse", 0) <= LSE_TOL
+                and all(e <= GRAD_REL_TOL for e in dist_["rel"].values())
+                and all(e <= mean_tol for e in dist_["mean"].values())):
+            fail(f"ring {name} disagrees with {against}: {dist_}")
+    rows = ring_chunk_rows(name, q, k, v, o_w, lse_w, do, cp)
+    return {"launches": launches, "rows": rows}
+
+
+def ring_phase(card: str, gen) -> dict:
+    """[ring]: ring_case at GPT-2-124M's attention (B TRAIN_BATCH) and
+    llama_1b's (B LLAMA_TRAIN_BATCH, 32 heads) at full width, RING_CP
+    chunks; then the chunk rows at each multi-card cp
+    plan's rank shape not already run. Returns each case by name, and the
+    multi-card plans' diagonal rows as rank_<plan> / fwd_rank_<plan>."""
+    out = {}
+    for name, shape in (("gpt2_124m", (TRAIN_BATCH, 12, 1024, 64)),
+                        ("llama_1b", (LLAMA_TRAIN_BATCH, 32, 2048, 64))):
+        out[name] = ring_case(card, name, shape, RING_CP, gen)
+        free_device_memory()
+    seen = {((TRAIN_BATCH, 12, 1024 // RING_CP, 64), 12): out["gpt2_124m"]["rows"]}
+    for plan in multi_card_plans(torch.cuda.device_count()):
+        cp = plan["mesh"].get("cp", 1)
+        if cp == 1:
+            continue
+        (B, H, Sc, hd), kv = rank_attention_shape(plan)
+        if ((B, H, Sc, hd), kv) not in seen:
+            from ray_tpu_torch.ops import attention as A
+
+            q, k, v, do = (torch.randn(B, H, Sc * cp, hd, generator=gen,
+                                       device="cuda", dtype=torch.bfloat16)
+                           for _ in range(4))
+            k, v = (x[:, :kv].repeat_interleave(H // kv, dim=1).contiguous()
+                    for x in (k, v))
+            o, lse = A.mha_forward_kernel(q, k, v)
+            seen[((B, H, Sc, hd), kv)] = ring_chunk_rows(
+                f"{plan['config']} over {plan['mesh']}, one rank", q, k, v,
+                o, lse, do, cp)
+            free_device_memory()
+        rows = seen[((B, H, Sc, hd), kv)]
+        out[f"fwd_rank_{plan['name']}"] = rows["fwd_diagonal"]
+        out[f"rank_{plan['name']}"] = rows["diagonal"]
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1496,6 +1729,22 @@ def tp_collectives_per_step(model, cfg) -> int:
     return per_layer * cfg.n_layer + 1 + 1 + 2 + len(keys) + whole
 
 
+def cp_collectives_per_step(model, cfg, cp: int) -> int:
+    """The collectives over cp that one meshed train step runs (dense
+    blocks, pp 1; ops/ring_attention.py): in each layer the ring's
+    rotations, cp − 1 forward and cp backward (one more forward round for
+    a checkpointed block, remat True or "dots", whose ring runs again;
+    none on a cp group of one, where a rotation moves nothing); then a
+    gradient sum
+    over cp for every leaf (each rank holds every parameter whole over cp),
+    and the sums of the count of targets and of the loss."""
+    from ray_tpu_torch.train.train_step import named_leaves
+
+    rotations = 0 if cp == 1 else (cp - 1) + cp + (cp - 1 if cfg.remat else 0)
+    leaves = len(list(named_leaves(model.logical_axes(cfg))))
+    return rotations * cfg.n_layer + leaves + 2
+
+
 def first_step_distance(a: dict, b: dict) -> dict:
     """How far run a's first step is from run b's: loss and grad norm
     relative to b's, each gradient by rel_err, the worst of them."""
@@ -1603,17 +1852,21 @@ def peak_memory(device, less: int = 0):
 def mesh_against_plain(card: str, tag: str, name: str, model, make_train_step,
                        cfg, batch_size: int, steps: int, mesh,
                        device="cuda", profile: bool = False,
-                       grad_tol: float = GRAD_PATH_REL_TOL) -> dict:
+                       grad_tol: float = GRAD_PATH_REL_TOL,
+                       plain_cfg=None) -> dict:
     """The meshed step on `mesh` (world 1) against the plain step, from the
     same seeded parameters and one synthetic batch of batch_size x seq_len:
     plain and mesh 1 + `steps` steps each, then the plain step once more
     (its own run-to-run spread). The first step held by
     check_mesh_against_plain (each gradient within grad_tol); each kernel launched once per layer per step
     on the card (the plain versions on the CPU); the collectives over tp
-    as many as tp_collectives_per_step says, the plain path none; with
+    and cp as many as tp_collectives_per_step and cp_collectives_per_step
+    say, the plain path none; with
     steps, the mesh path's loss finite and falling. Prints step ms,
     tokens/s and peak memory of both paths; with `profile`, one step of
-    each by kernel (after the timed ones). Returns the mesh run."""
+    each by kernel (after the timed ones). The plain path runs `plain_cfg`
+    where given (default cfg: a "ring" config needs a mesh). Returns the
+    mesh run."""
     from ray_tpu_torch.train.train_step import synthetic_batch
 
     batch = {k: torch.as_tensor(v, device=device)
@@ -1625,7 +1878,8 @@ def mesh_against_plain(card: str, tag: str, name: str, model, make_train_step,
         held = sum(g.numel() * g.element_size() for r in runs.values()
                    for g in r["grads"].values())   # earlier runs' grads
         what = f"{name} {path}" if profile and path != "again" else ""
-        runs[path] = train_run(make_train_step, cfg, batch, device, n, m, what)
+        runs[path] = train_run(make_train_step, cfg if m else plain_cfg or cfg,
+                               batch, device, n, m, what)
         peak[path] = peak_memory(device, held)
         free_device_memory()
     spread = first_step_distance(runs.pop("again"), runs["plain"])
@@ -1645,13 +1899,15 @@ def mesh_against_plain(card: str, tag: str, name: str, model, make_train_step,
         if run["launches"] != {"flash_fwd": expected, "flash_bwd": expected}:
             fail(f"{tag} {path} path launched {run['launches']}, "
                  f"expected {expected} each")
-    tp = runs["mesh"]["collectives"].get("tp", 0)
-    want = tp_collectives_per_step(model, cfg) * (1 + steps)
-    log(f"[{tag}] collectives over tp: {tp} in {1 + steps} steps (the "
-        f"formula: {want})")
-    if tp != want or runs["plain"]["collectives"]:
-        fail(f"{tag}: {tp} collectives over tp, the formula says {want}; "
-             f"the plain path ran {runs['plain']['collectives']}")
+    cp = mesh.size(mesh.mesh_dim_names.index("cp"))
+    for axis, formula in (("tp", tp_collectives_per_step(model, cfg)),
+                          ("cp", cp_collectives_per_step(model, cfg, cp))):
+        got, want = runs["mesh"]["collectives"].get(axis, 0), formula * (1 + steps)
+        log(f"[{tag}] collectives over {axis}: {got} in {1 + steps} steps "
+            f"(the formula: {want})")
+        if got != want or runs["plain"]["collectives"]:
+            fail(f"{tag}: {got} collectives over {axis}, the formula says "
+                 f"{want}; the plain path ran {runs['plain']['collectives']}")
     if steps:
         losses = runs["mesh"]["loss"]
         if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
@@ -1708,8 +1964,9 @@ def remat_against_mesh(card: str, mesh, ref: dict, cfg, batch_size: int,
 def multi_card_plans(count: int) -> list:
     """The multi-card runs on `count` visible cards (at most
     MULTI_CARD_MAX used; none on one card): GPT-2-124M over fsdp on every
-    card; llama_1b over tp 2, or tp 4 on four cards; on four, GPT-2-124M
-    over fsdp2·tp2."""
+    card; llama_1b over tp 2, or tp 4 on four cards; GPT-2-124M over cp 2,
+    or cp 4 on four cards; on four, GPT-2-124M over fsdp2·tp2 and llama_1b
+    over cp2·tp2."""
     if count < 2:
         return []
     world = min(count, MULTI_CARD_MAX)
@@ -1717,11 +1974,15 @@ def multi_card_plans(count: int) -> list:
     plans = [dict(name=f"gpt2_124m_fsdp{world}", model="gpt2", config="gpt2_124m",
                   mesh={"fsdp": world}, batch=TRAIN_BATCH),
              dict(name=f"llama_1b_tp{tp}", model="llama", config="llama_1b",
-                  mesh={"tp": tp}, batch=LLAMA_TRAIN_BATCH)]
+                  mesh={"tp": tp}, batch=LLAMA_TRAIN_BATCH),
+             dict(name=f"gpt2_124m_cp{tp}", model="gpt2", config="gpt2_124m",
+                  mesh={"cp": tp}, batch=TRAIN_BATCH)]
     if world == 4:
-        plans.append(dict(name="gpt2_124m_fsdp2tp2", model="gpt2",
-                          config="gpt2_124m", mesh={"fsdp": 2, "tp": 2},
-                          batch=TRAIN_BATCH))
+        plans += [dict(name="gpt2_124m_fsdp2tp2", model="gpt2",
+                       config="gpt2_124m", mesh={"fsdp": 2, "tp": 2},
+                       batch=TRAIN_BATCH),
+                  dict(name="llama_1b_cp2tp2", model="llama", config="llama_1b",
+                       mesh={"cp": 2, "tp": 2}, batch=LLAMA_TRAIN_BATCH)]
     return plans
 
 
@@ -1729,24 +1990,26 @@ def rank_attention_shape(plan: dict):
     """The q, k and v shape [B, H, S, hd] that one rank of a multi-card plan
     gives the flash kernels, and how many kv heads it holds before it
     repeats them to H: the batch split over dp·fsdp, the heads and kv
-    heads over tp."""
+    heads over tp, the sequence over cp (a ring chunk)."""
     from ray_tpu_torch.models import gpt2, llama
 
     model = {"gpt2": gpt2, "llama": llama}[plan["model"]]
     cfg = getattr(model, plan["config"])()
-    mesh = {"dp": 1, "fsdp": 1, "tp": 1, **plan["mesh"]}
+    mesh = {"dp": 1, "fsdp": 1, "tp": 1, "cp": 1, **plan["mesh"]}
     rows = plan["batch"] // (mesh["dp"] * mesh["fsdp"])
     kv = getattr(cfg, "n_kv_head", cfg.n_head)
-    return ((rows, cfg.n_head // mesh["tp"], cfg.seq_len, cfg.head_dim),
-            kv // mesh["tp"])
+    return ((rows, cfg.n_head // mesh["tp"], cfg.seq_len // mesh["cp"],
+             cfg.head_dim), kv // mesh["tp"])
 
 
 def mesh_rank(rank: int, init_method: str, out: str, plan: dict,
               backend: str = "nccl", device: str = "cuda") -> None:
     """One rank of a multi-card run (multi_card starts one process a card):
     the plan's model (remat off) over its MeshSpec at its global batch, as
-    train_run; writes this rank's first step's metrics, step times,
-    launches, collectives and peak memory to `out` (JSON)."""
+    train_run (profiling one more step when the plan says "profile");
+    writes this rank's first step's metrics, step times,
+    launches, collectives, index on the cp axis and peak memory to `out`
+    (JSON)."""
     from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.parallel import mesh as mesh_lib
     from ray_tpu_torch.train.train_step import (
@@ -1760,11 +2023,16 @@ def mesh_rank(rank: int, init_method: str, out: str, plan: dict,
         model, make = {"gpt2": (gpt2, make_gpt2_train_step),
                        "llama": (llama, make_llama_train_step)}[plan["model"]]
         cfg = getattr(model, plan["config"])(remat=False)
+        mesh = mesh_lib.make_mesh(spec, device)
+        # every rank profiles its extra step: a step on some ranks only
+        # would leave the others' collectives unmatched
+        what = f"{plan['name']} rank {rank}" if plan.get("profile") else ""
         run = train_run(make, cfg, synthetic_batch(cfg, plan["batch"], seed=0),
-                        device, TRAIN_STEPS, mesh_lib.make_mesh(spec, device))
+                        device, TRAIN_STEPS, mesh, what)
         Path(out).write_text(json.dumps(
             {**{k: run[k] for k in ("first", "loss", "grad_norm", "step_ms",
                                      "launches", "collectives")},
+             "cp_rank": mesh.get_local_rank("cp"),
              "peak_memory_bytes": peak_memory(device)}))
     finally:
         torch.distributed.destroy_process_group()
@@ -1812,21 +2080,24 @@ def hold_to_world_one(card: str, plan: dict, ranks: list, ref: dict,
     products round on other shapes; measured on four H100s: loss 9.5e-7
     to 2.9e-4 apart, grad norm 6.7e-6 to 9.0e-5, inside the plain step's
     own grad-norm spread of up to 1.6e-4), every rank the same loss; each
-    kernel
-    once per layer per step (the plain versions off the card); the
-    collectives over tp as tp_collectives_per_step says (on a tp group of
-    one too). Prints step ms, tokens/s per card and peak memory per card."""
+    kernel once per layer per step on every rank, or over cp (a ring)
+    cp_rank + 1 times (the plain versions off the card); the collectives
+    over tp and cp as tp_collectives_per_step and cp_collectives_per_step
+    say (on groups of one too). Prints step ms, tokens/s per card and peak
+    memory per card."""
     from ray_tpu_torch.models import gpt2, llama
 
     run, world = ranks[0], len(ranks)
     model = {"gpt2": gpt2, "llama": llama}[plan["model"]]
     cfg = getattr(model, plan["config"])(remat=False)
+    cp = plan["mesh"].get("cp", 1)
     loss_err = abs(run["first"]["loss"] - ref["first"]["loss"])
     norm_err = (abs(run["first"]["grad_norm"] - ref["first"]["grad_norm"])
                 / ref["first"]["grad_norm"])
     step = sorted(run["step_ms"])[len(run["step_ms"]) // 2]
     steps = 1 + len(run["step_ms"])
-    tp_want = tp_collectives_per_step(model, cfg) * steps
+    want = {"tp": tp_collectives_per_step(model, cfg) * steps,
+            "cp": cp_collectives_per_step(model, cfg, cp) * steps}
     log(f"[parallel] " + json.dumps(dict(
         card=card, cards=world, mesh=plan["mesh"], model=plan["config"],
         batch=plan["batch"], seq_len=cfg.seq_len, first=run["first"],
@@ -1836,27 +2107,33 @@ def hold_to_world_one(card: str, plan: dict, ranks: list, ref: dict,
         world_one_step_ms_median=sorted(ref["step_ms"])[len(ref["step_ms"]) // 2],
         tokens_per_s_per_card=plan["batch"] * cfg.seq_len / (step / 1e3) / world,
         peak_memory_bytes_per_card=[r["peak_memory_bytes"] for r in ranks],
-        launches=run["launches"], collectives=run["collectives"],
-        tp_collectives_formula=tp_want)))
+        launches_by_rank=[r["launches"] for r in ranks],
+        collectives=run["collectives"], collectives_formula=want)))
     if not (loss_err <= LOSS_TOL and norm_err <= MESH_NORM_REL_TOL):
         fail(f"multi-card {plan['name']} disagrees with the world-1 step: "
              f"loss {loss_err}, grad norm {norm_err}")
     if len({r["first"]["loss"] for r in ranks}) != 1:
         fail(f"multi-card {plan['name']}: the ranks' losses differ")
-    expected = cfg.n_layer * steps if torch.device(device).type == "cuda" else 0
-    if run["launches"] != {"flash_fwd": expected, "flash_bwd": expected}:
-        fail(f"multi-card {plan['name']} launched {run['launches']}, "
-             f"expected {expected} each")
-    if run["collectives"].get("tp", 0) != tp_want:
-        fail(f"multi-card {plan['name']}: {run['collectives']} "
-             f"collectives, {tp_want} over tp by the formula")
+    on_card = torch.device(device).type == "cuda"
+    for r in ranks:
+        expected = cfg.n_layer * steps * (r["cp_rank"] + 1) if on_card else 0
+        if r["launches"] != {"flash_fwd": expected, "flash_bwd": expected}:
+            fail(f"multi-card {plan['name']}: a rank at cp index "
+                 f"{r['cp_rank']} launched {r['launches']}, expected "
+                 f"{expected} each")
+    for axis, n in want.items():
+        if run["collectives"].get(axis, 0) != n:
+            fail(f"multi-card {plan['name']}: {run['collectives']} "
+                 f"collectives, {n} over {axis} by the formula")
 
 
-def multi_card(card: str, world_one: dict) -> dict:
+def multi_card(card: str, world_one: dict, profile: bool = False) -> dict:
     """With 2 or more cards: each of multi_card_plans, one NCCL rank a card,
     held to the world-1 mesh run of its model (world_one["gpt2"] or
-    ["llama"]) by hold_to_world_one. With one card it says that the run
-    did not take place. Returns the launches of rank 0 by plan."""
+    ["llama"]) by hold_to_world_one; with `profile`, every rank of each
+    also profiles one more step by kernel. With one card
+    it says that the run did not take place. Returns the launches of rank
+    0 by plan."""
     count = torch.cuda.device_count()
     if count < 2:
         log("[parallel] multi-card run: did not take place (one card; "
@@ -1864,19 +2141,21 @@ def multi_card(card: str, world_one: dict) -> dict:
         return {}
     launches = {}
     for plan in multi_card_plans(count):
-        ranks = run_ranks(plan, math.prod(plan["mesh"].values()))
+        ranks = run_ranks({**plan, "profile": profile},
+                          math.prod(plan["mesh"].values()))
         hold_to_world_one(card, plan, ranks, world_one[plan["model"]])
         launches[plan["name"]] = ranks[0]["launches"]
     return launches
 
 
-def multi_card_check() -> int:
+def multi_card_check(profile: bool = False) -> int:
     """The multi-card runs and what they are held to, alone, for a machine
     with 2 to 4 cards: python3 -c "import chip_smoke, sys;
     sys.exit(chip_smoke.multi_card_check())". Builds the kernels, trains
     GPT-2-124M and llama_1b through the world-1 mesh path (one NCCL rank,
     card 0) as the [parallel] and [parallel-tp] phases do, then each of
-    multi_card_plans over the cards (multi_card)."""
+    multi_card_plans over the cards (multi_card; with `profile`, every rank
+    profiles one more step: multi_card_check(True))."""
     from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.parallel import mesh as mesh_lib
     from ray_tpu_torch.train.train_step import (
@@ -1907,7 +2186,7 @@ def multi_card_check() -> int:
             log(f"[parallel] world 1, {key}: " + json.dumps(
                 {k: world_one[key][k] for k in ("first", "loss", "step_ms")}))
             free_device_memory()
-        multi_card(card, world_one)
+        multi_card(card, world_one, profile)
     finally:
         torch.distributed.destroy_process_group()
     log(card)
@@ -1921,12 +2200,16 @@ def parallel_phase(card: str, profile: bool = False) -> dict:
     beside it); gpt2_124m(moe_experts=8), one step each way; [parallel-tp]
     llama_1b at B LLAMA_TRAIN_BATCH, 1 + TRAIN_STEPS steps, through the
     same tensor-parallel code on a group of one (mesh_against_plain for
-    all three), then once with remat (remat_against_mesh); the local
+    all three), then once with remat (remat_against_mesh); [parallel-cp]
+    gpt2_124m(attention_impl="ring") at B TRAIN_BATCH, 1 + TRAIN_STEPS
+    steps, ring attention on a cp group of one against the plain step
+    (mesh_against_plain); the local
     pipeline (PIPELINE_STAGES stages, PIPELINE_MICROBATCHES microbatches)
     against the sequential blocks; the multi-card runs where there are
     cards for them. With `profile`, one
-    step of each path of [parallel] and [parallel-tp] by kernel. Returns
-    the launches by path."""
+    step of each path of [parallel], [parallel-tp] and [parallel-cp] by
+    kernel, and of every rank of each multi-card run.
+    Returns the launches by path."""
     from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.parallel import mesh as mesh_lib
     from ray_tpu_torch.train.train_step import (
@@ -1963,6 +2246,16 @@ def parallel_phase(card: str, profile: bool = False) -> dict:
             card, mesh, world_one["llama"], llama.llama_1b(remat=True),
             LLAMA_TRAIN_BATCH)
         free_device_memory()
+        # [parallel-cp]: the ring over a cp group of one, against the plain
+        # step (whose "auto" attention needs no mesh)
+        run = mesh_against_plain(
+            card, "parallel-cp", "gpt2_124m", gpt2, make_gpt2_train_step,
+            gpt2.gpt2_124m(attention_impl="ring", remat=False), TRAIN_BATCH,
+            TRAIN_STEPS, mesh, profile=profile,
+            plain_cfg=gpt2.gpt2_124m(remat=False))
+        launches["parallel-cp"] = run.pop("launches")
+        del run
+        free_device_memory()
 
         cfg = gpt2.gpt2_124m()
         pipe = pipeline_and_sequential(
@@ -1980,7 +2273,7 @@ def parallel_phase(card: str, profile: bool = False) -> dict:
             fail(f"pipeline disagrees with the sequential blocks: {pipe}")
         launches["pipeline"] = pipe["launches"]
         free_device_memory()
-        launches["multi_card"] = multi_card(card, world_one)
+        launches["multi_card"] = multi_card(card, world_one, profile)
     finally:
         torch.distributed.destroy_process_group()
     free_device_memory()
@@ -2058,6 +2351,9 @@ def main() -> int:
                            COMPARE_BATCH, MOE_GRAD_PATH_REL_TOL, MOE_LOSS_TOL)
 
     par = parallel_phase(card, args.profile)
+    # after the model paths: their step times stay comparable with runs
+    # that had no [ring] before them (the mesh step is host-bound)
+    ring = ring_phase(card, gen)
 
     def numbers(row, launches):
         """One path's numbers for a kernel: its launches on that path beside
@@ -2069,9 +2365,21 @@ def main() -> int:
 
     def multi_card_paths(rows, prefix, runs, kernel):
         """The multi-card runs' rank 0 launches, beside the case at that
-        rank's shape."""
+        rank's shape (a ring chunk's diagonal under cp)."""
+        rows = {**rows, **ring}
         return {f"multi_card_{n}": numbers(rows[f"{prefix}rank_{n}"], run[kernel])
                 for n, run in runs.items()}
+
+    def ring_paths(prefix, kernel):
+        """[ring]'s launches beside its diagonal chunk's case, and the
+        cases at the other chunks' offsets."""
+        return {f"ring_{n}_cp{RING_CP}": {
+            **numbers(ring[n]["rows"][f"{prefix}diagonal"],
+                      ring[n]["launches"][kernel]),
+            "chunks": {w: {k: ring[n]["rows"][f"{prefix}{w}"][k] for k in (
+                "q_off", "kv_off", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} for w in ("past", "diagonal", "future")}}
+            for n in ("gpt2_124m", "llama_1b")}
 
     # top level: GPT-2's training path at its own shape; by_path: each main
     # path at its own shape with its own launches
@@ -2090,6 +2398,9 @@ def main() -> int:
                                            par["parallel-tp"]["flash_fwd"]),
         "parallel_tp_llama_train_remat": numbers(
             bwd["fwd_llama_train"], par["parallel-tp-remat"]["flash_fwd"]),
+        "parallel_cp_train": numbers(bwd["fwd_main"],
+                                     par["parallel-cp"]["flash_fwd"]),
+        **ring_paths("fwd_", "flash_fwd"),
         **multi_card_paths(bwd, "fwd_", par["multi_card"], "flash_fwd"),
     }
     bwd_paths = {
@@ -2104,6 +2415,8 @@ def main() -> int:
                                            par["parallel-tp"]["flash_bwd"]),
         "parallel_tp_llama_train_remat": numbers(
             bwd["llama_train"], par["parallel-tp-remat"]["flash_bwd"]),
+        "parallel_cp_train": numbers(bwd["main"], par["parallel-cp"]["flash_bwd"]),
+        **ring_paths("", "flash_bwd"),
         **multi_card_paths(bwd, "", par["multi_card"], "flash_bwd"),
     }
     log(json.dumps({"kernels": [{

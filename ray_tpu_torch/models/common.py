@@ -20,7 +20,9 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from ray_tpu_torch.parallel.mesh import current_mesh, sums_of_copies, use_mesh
+from ray_tpu_torch.parallel.mesh import (
+    axis_size, current_mesh, sums_of_copies, use_mesh,
+)
 
 
 def round_up(x: int, m: int) -> int:
@@ -121,6 +123,28 @@ def run_block(block: Callable, remat: Any, *args):
             context_fn=partial(create_selective_checkpoint_contexts, _save_dots),
         )
     return checkpoint(block, *args, use_reentrant=False)
+
+
+def uses_ring(impl: str, mesh) -> bool:
+    """Whether a model's attention goes through ring attention over the
+    mesh's cp axis (ops/ring_attention.py): "auto" under a mesh with
+    cp > 1, and "ring" (GPT-2's) under any mesh, a cp group of one
+    included. Raises where the chunks would attend only within themselves:
+    "ring" without a mesh, "pallas" or "xla" under cp > 1 (the reference's
+    GSPMD gathers k and v there; the port does not)."""
+    cp = 1 if mesh is None else axis_size(mesh, ("cp",))
+    if impl == "ring":
+        if mesh is None:
+            raise ValueError(
+                "attention_impl='ring' needs a mesh with a cp axis; call the "
+                "model inside parallel.mesh.use_mesh(mesh) (train_step does)")
+        return True
+    if cp > 1 and impl != "auto":
+        raise ValueError(
+            f"attention_impl={impl!r} under cp={cp} would attend only within "
+            "this rank's chunk of the sequence; use 'auto' or 'ring', which "
+            "run ring attention over the cp axis")
+    return cp > 1
 
 
 def plain_causal_attention(q, k, v):

@@ -10,8 +10,10 @@ Attention (`attention_impl`):
   for a CUDA input, its plain version for a CPU input;
 - "xla": the plain einsum path of the JAX model (bf16 logits, masked with
   finfo(dtype).min, f32 softmax);
-- "ring" raises NotImplementedError: ring attention over a cp process
-  group comes with the context-parallel slice, after tensor parallelism.
+- "ring": ops.ring_attention.ring_attention over the mesh's cp process
+  group, which "auto" also takes under a mesh with cp > 1; "ring" needs a
+  mesh (a cp group of one runs the ring of one chunk), and "pallas" and
+  "xla" are refused under cp > 1 (models.common.uses_ring).
 
 Training: `loss_fn` is the mean next-token cross-entropy, through the
 fused `ops.cross_entropy.softmax_xent` or, with `loss_chunk`, chunk by
@@ -38,7 +40,10 @@ wte, and a block takes its widths from those shards: qkv and fc are
 column-parallel, proj and out row-parallel with their biases added after
 the sum; the embedding, the tied head and the loss are vocab-parallel, so
 under a mesh `forward` returns this rank's logits [B, S, V/tp]
-(parallel.tensor.gather_vocab puts them together).
+(parallel.tensor.gather_vocab puts them together). Over cp a rank holds
+a contiguous S/cp chunk of every sequence: its position embedding is
+wpe[off : off + S/cp] (off = cp_index · S/cp) and attention runs as a
+ring over the cp group.
 
 `scan_layers` and the `attn_*block*` fields are kept for parity and have
 no effect here: the forward runs eagerly, layer by layer, and the kernels'
@@ -57,14 +62,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.models.common import (  # params_from_jax: a JAX tree → torch
     ParamsModule, layers, params_from_jax, plain_causal_attention, round_up,
-    run_block,
+    run_block, uses_ring,
 )
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.cross_entropy import vocab_parallel_xent
 from ray_tpu_torch.ops.moe import (
     moe_init, moe_logical_axes, moe_mlp, moe_param_shapes,
 )
-from ray_tpu_torch.parallel.mesh import axis_size, current_mesh
+from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.parallel.mesh import axis_size, current_mesh, seq_offset
 from ray_tpu_torch.parallel.pipeline import pipeline_apply, stages_from_layers
 from ray_tpu_torch.parallel.tensor import (
     column_in, row_out, vocab_parallel_embed, vocab_parallel_logits,
@@ -287,13 +293,11 @@ def _layernorm(x, scale, bias, eps=1e-5):
 
 
 def _attention(q, k, v, cfg: GPT2Config):
-    """q, k, v: [B, H, S, hd] → [B, H, S, hd], causal."""
-    impl = cfg.attention_impl
-    if impl == "ring":
-        raise NotImplementedError(
-            "attention_impl='ring' needs ring attention over a cp process "
-            "group, which comes with the context-parallel slice"
-        )
+    """q, k, v: [B, H, S, hd] → [B, H, S, hd], causal (under cp, this
+    rank's chunk of the sequence)."""
+    impl, mesh = cfg.attention_impl, current_mesh()
+    if uses_ring(impl, mesh):
+        return ring_attention(q, k, v, mesh, causal=True)
     if impl in ("auto", "pallas"):
         return flash_attention(q, k, v, causal=True, layout="bhsd")
     return plain_causal_attention(q, k, v)
@@ -376,7 +380,9 @@ def _trunk(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config):
     S = tokens.shape[1]
     dt = cfg.dtype
     mesh = current_mesh()
-    x = vocab_parallel_embed(wte.to(dt), tokens, mesh) + params["wpe"][:S].to(dt)
+    off = seq_offset(mesh, S)
+    x = (vocab_parallel_embed(wte.to(dt), tokens, mesh)
+         + params["wpe"][off:off + S].to(dt))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     pp = _pipeline_stages(mesh)
     if pp > 1:

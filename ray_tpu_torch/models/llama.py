@@ -25,7 +25,11 @@ is unchanged, and each local kv head is repeated in place as before),
 F/tp SwiGLU columns and V/tp rows of `wte` and columns of `lm_head`: wq,
 wk, wv, w_gate and w_up are column-parallel, wo and w_down row-parallel;
 the embedding, the head and the loss are vocab-parallel, so under a mesh
-`forward` returns this rank's logits [B, S, V/tp].
+`forward` returns this rank's logits [B, S, V/tp]. Over cp a rank holds a
+contiguous S/cp chunk of every sequence: RoPE's positions start at its
+global offset (cp_index · S/cp), and "auto" runs attention as a ring over
+the cp group (ops/ring_attention.py) on the kv heads repeated to H;
+"pallas" and "xla" are refused under cp > 1 (models.common.uses_ring).
 
 `params_from_hf` maps a transformers `LlamaForCausalLM` that the caller
 built or loaded; this module never imports transformers.
@@ -42,11 +46,12 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.models.common import (  # params_from_jax: a JAX tree → torch
     ParamsModule, layers, params_from_jax, plain_causal_attention, round_up,
-    run_block,
+    run_block, uses_ring,
 )
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.cross_entropy import vocab_parallel_xent
-from ray_tpu_torch.parallel.mesh import current_mesh
+from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.parallel.mesh import current_mesh, seq_offset
 from ray_tpu_torch.parallel.tensor import (
     column_in, row_out, vocab_parallel_embed, vocab_parallel_logits,
 )
@@ -230,11 +235,15 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
 
 
 def _attention(q, k, v, cfg: LlamaConfig):
-    """q [B, H, S, hd], k and v [B, KH, S, hd] → [B, H, S, hd], causal."""
+    """q [B, H, S, hd], k and v [B, KH, S, hd] → [B, H, S, hd], causal
+    (under cp, this rank's chunk of the sequence)."""
     groups = cfg.n_head // cfg.n_kv_head
     if groups > 1:
         k = k.repeat_interleave(groups, dim=1)
         v = v.repeat_interleave(groups, dim=1)
+    mesh = current_mesh()
+    if uses_ring(cfg.attention_impl, mesh):
+        return ring_attention(q, k, v, mesh, causal=True)
     if cfg.attention_impl in ("auto", "pallas"):
         return flash_attention(q, k, v, causal=True, layout="bhsd")
     return plain_causal_attention(q, k, v)
@@ -269,8 +278,10 @@ def _trunk(params: Dict[str, Any], tokens, cfg: LlamaConfig):
     """tokens [B, S] int → final hidden states [B, S, D] (compute dtype)."""
     wte = params["wte"]
     tokens = torch.as_tensor(tokens, device=wte.device).long()
-    x = vocab_parallel_embed(wte, tokens, current_mesh(), cfg.dtype)
-    positions = torch.arange(tokens.shape[1], device=wte.device)
+    mesh = current_mesh()
+    x = vocab_parallel_embed(wte, tokens, mesh, cfg.dtype)
+    S = tokens.shape[1]
+    positions = seq_offset(mesh, S) + torch.arange(S, device=wte.device)
     for layer in layers(params["blocks"]):
         x = run_block(_block, cfg.remat, x, layer, positions, cfg)
     return _rmsnorm(x, params["final_norm"], cfg.rms_eps)

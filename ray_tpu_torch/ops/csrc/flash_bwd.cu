@@ -705,6 +705,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    float scale, int causal, cudaStream_t stream) {
   using C = Cfg<HD, ROUND>;
   if (encoder() == nullptr) return cudaErrorSymbolNotFound;
+  // q's device, made current on this thread with its primary context: a
+  // thread that has launched nothing yet (the autograd engine's, before its
+  // first kernel) has no current context, and without one the tensor maps
+  // cannot be encoded
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, q);
+  if (err != cudaSuccess) return err;
+  const int device = attr.device;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if ((err = cudaSetDevice(device)) != cudaSuccess) return err;
   const int BH = B * H, sq_pad = padded_rows(Sq);
   float* dq_acc = static_cast<float*>(scratch);
   float* rows = dq_acc + (size_t)BH * Sq * HD;
@@ -717,10 +727,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     return cudaErrorInvalidValue;
   // once per device: the kernel's shared-memory limit, and the SM count
   static int sm_count[64] = {};  // 0: not yet set on that device
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device >= 64) return cudaErrorInvalidDevice;
   if (sm_count[device] == 0) {
     int sms = 0;
     if ((err = cudaFuncSetAttribute(flash_bwd_kernel<HD, ROUND>,

@@ -429,16 +429,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
                    int causal, cudaStream_t stream) {
   using C = Cfg<HD>;
   if (encoder() == nullptr) return cudaErrorSymbolNotFound;
+  // q's device, made current on this thread with its primary context: a
+  // thread that has launched nothing yet (the autograd engine's, before its
+  // first kernel) has no current context, and without one the tensor maps
+  // cannot be encoded
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, q);
+  if (err != cudaSuccess) return err;
+  const int device = attr.device;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if ((err = cudaSetDevice(device)) != cudaSuccess) return err;
   CUtensorMap tq, tk, tv, to;
   if (!encode(&tq, q, B * H, Sq, HD, BLOCK_M) || !encode(&tk, k, B * H, Skv, HD, C::BLOCK_N) ||
       !encode(&tv, v, B * H, Skv, HD, C::BLOCK_N) || !encode(&to, o, B * H, Sq, HD, WG_ROWS))
     return cudaErrorInvalidValue;
   // once per device: the kernel's shared-memory limit, and the SM count
   static int sm_count[64] = {};  // 0: not yet set on that device
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device >= 64) return cudaErrorInvalidDevice;
   if (sm_count[device] == 0) {
     int sms = 0;
     if ((err = cudaFuncSetAttribute(flash_fwd_kernel<HD>,

@@ -12,11 +12,14 @@ process group of that mesh dimension.
   pp    pipeline stages (parallel/pipeline.py)
   tp    tensor parallelism (Megatron style, parallel/tensor.py): each rank
         holds H/tp heads, F/tp MLP columns and V/tp vocabulary rows
-  cp    context parallelism (ring attention): not ported yet
+  cp    context parallelism: each rank holds a contiguous S/cp slice of
+        the sequence, and attention runs as a ring over the cp group
+        (ops/ring_attention.py)
   ep    expert parallelism: each rank holds E/ep experts of every MoE layer
 
-A global batch is split over (dp, fsdp) in mesh order, so the ranks of one
-ep, tp or pp group hold the same rows.
+A global batch is split over (dp, fsdp) in mesh order, its sequence over
+cp in contiguous chunks, so the ranks of one ep, tp or pp group hold the
+same block of it.
 
 Every collective the helpers below run is counted, per mesh axis, in
 `collectives` (a Counter the tests and chip_smoke.py read and clear), as
@@ -144,8 +147,7 @@ def axis_index(mesh, axes: Sequence[str]) -> int:
 
 def local_rows(mesh, batch_size: int) -> slice:
     """This rank's rows of a global batch: split over (dp, fsdp) in mesh
-    order, contiguous, as the reference's data sharding lays them out. The
-    sequence is not split (no cp yet)."""
+    order, contiguous, as the reference's data sharding lays them out."""
     n = axis_size(mesh, BATCH_AXES)
     if batch_size % n:
         raise ValueError(
@@ -155,10 +157,31 @@ def local_rows(mesh, batch_size: int) -> slice:
     return slice(start, start + per)
 
 
+def local_positions(mesh, seq_len: int) -> slice:
+    """This rank's positions of a global sequence: split over cp in
+    contiguous chunks, as the reference's data sharding lays them out."""
+    cp = axis_size(mesh, ("cp",))
+    if seq_len % cp:
+        raise ValueError(
+            f"sequence length {seq_len} not divisible by cp axis size {cp}; "
+            "pad the sequence or change the mesh")
+    start = seq_offset(mesh, seq_len // cp)
+    return slice(start, start + seq_len // cp)
+
+
+def seq_offset(mesh, local_len: int) -> int:
+    """The global position of this rank's first token, for a sequence split
+    over cp in chunks of local_len: cp_index · local_len (0 without a
+    mesh)."""
+    return 0 if mesh is None else mesh.get_local_rank("cp") * local_len
+
+
 def local_batch(mesh, batch: Dict[str, object]) -> Dict[str, object]:
-    """This rank's rows of each [B, ...] array of a global batch."""
-    rows = local_rows(mesh, len(batch["tokens"]))
-    return {k: v[rows] for k, v in batch.items()}
+    """This rank's block of each [B, S] array of a global batch: its rows
+    (local_rows) and its positions (local_positions)."""
+    B, S = batch["tokens"].shape[:2]
+    rows, cols = local_rows(mesh, B), local_positions(mesh, S)
+    return {k: v[rows, cols] for k, v in batch.items()}
 
 
 # --------------------------------------------------------------------------- #

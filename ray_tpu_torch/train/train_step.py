@@ -6,19 +6,23 @@ JAX step is one jitted function over a mesh with donated buffers; here the
 step runs eagerly and updates the parameters and the optimizer's moments in
 place.
 
-With `mesh` (parallel/mesh.py: dp, fsdp, ep, tp and pp; cp is refused)
-the step is still the reference's function of the GLOBAL batch, and every
-rank takes its rows of it. Each parameter lives as a DTensor whose
-placements come from the model's `logical_axes` and the rule table
-(parallel/sharding.py); its local shard is what the optimizer updates, and
-the moments follow it. A step gathers each shard over the batch axes that
-shard it (sharding.working_tree), runs the forward and backward on this
-rank's rows with the loss divided by the global count of targets, then
+With `mesh` (parallel/mesh.py: dp, fsdp, ep, tp, pp and cp) the step is
+still the reference's function of the GLOBAL batch, and every rank takes
+its block of it: its rows, and over cp its chunk of the sequence. Each
+parameter lives as a DTensor whose placements come from the model's
+`logical_axes` and the rule table (parallel/sharding.py); its local shard
+is what the optimizer updates, and the moments follow it. A step gathers
+each shard over the batch axes that shard it (sharding.working_tree),
+runs the forward and backward on this rank's block with the loss divided
+by the global count of targets, then
 sums each gradient over the ranks whose contributions are disjoint: the
-batch axes (reduce-scattered back to the shard where they shard it) and,
-for a parameter every pipeline stage holds, pp (the first stage's
-embedding plus the last stage's head). Never over ep or tp: the ranks of
-an ep or tp group hold the same rows and compute the same loss; the MoE
+batch axes (reduce-scattered back to the shard where they shard it), cp
+(each rank's chunk of the sequence; ring attention hands each rank the
+gradient of its own k and v) and, for a parameter every pipeline stage
+holds, pp (the first stage's embedding plus the last stage's head); the
+count of targets and the loss are summed over the batch axes and cp too.
+Never over ep or tp: the ranks of an ep or tp group hold the same block
+and compute the same loss; the MoE
 layer's and the tensor-parallel products' collectives (parallel/tensor.py)
 hand each rank the whole gradient of what it holds, its shard of a leaf
 split over tp or ep, or the whole of a leaf it holds whole. The clipping
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models import gpt2, llama
+from ray_tpu_torch.models.common import uses_ring
 from ray_tpu_torch.parallel.mesh import (
     AXIS_ORDER, BATCH_AXES, all_reduce, broadcast, local_batch, mesh_spec,
     reduce_scatter_dims, use_mesh,
@@ -258,14 +263,26 @@ def _make_train_step(model, cfg, optimizer, generator, device, mesh=None,
 
 def _mesh_rules(model, cfg, mesh, rules):
     """The reference's checks of a mesh plan (ray_tpu/train/train_step.py),
-    the widths tp must divide, and the refusal of what is not ported yet;
-    returns the rules, with the layer stack on pp for a pipelined plan."""
+    the widths tp and cp must divide, and the refusal of what is not ported
+    yet; returns the rules, with the layer stack on pp for a pipelined
+    plan."""
     spec = mesh_spec(mesh)
     if spec.cp > 1:
-        raise NotImplementedError(
-            f"cp={spec.cp}: context parallelism (ring attention) is not "
-            "ported yet; it comes with the ring-attention slice"
-        )
+        if cfg.seq_len % spec.cp:
+            raise ValueError(
+                f"sequence length {cfg.seq_len} not divisible by cp axis "
+                f"size {spec.cp}; pad the sequence or change the mesh")
+        if getattr(cfg, "moe_experts", 0) > 0:
+            raise NotImplementedError(
+                "MoE with cp > 1 is not ported yet: the global expert queue "
+                "(ops/moe.py) orders the tokens by batch rank, and a "
+                "sequence split over cp breaks that order")
+        if spec.pp > 1:
+            raise NotImplementedError(
+                "pipeline parallelism with cp > 1 (pp·cp) is not ported "
+                "yet: the GPipe schedule runs no ring attention")
+    uses_ring(cfg.attention_impl, mesh)   # raises where the chunks would
+                                          # attend only within themselves
     widths = {"n_head": cfg.n_head, "d_ff": cfg.d_ff,
               "padded_vocab": cfg.padded_vocab}
     if model is llama:
@@ -313,7 +330,7 @@ def _leaf_plan(placements) -> _LeafPlan:
              if isinstance(p, Shard)}
     return _LeafPlan(
         gather=batch_gather_dims(placements),
-        summed=tuple(a for a in BATCH_AXES + ("pp",) if a not in shard),
+        summed=tuple(a for a in BATCH_AXES + ("pp", "cp") if a not in shard),
         copied=tuple(a for a in ("ep", "tp") if a not in shard),
         sharded=tuple(shard))
 
@@ -354,7 +371,8 @@ def _make_mesh_train_step(model, cfg, optimizer, generator, device, mesh,
         rows = local_batch(mesh, batch)
         tokens = torch.as_tensor(rows["tokens"], device=device)
         targets = torch.as_tensor(rows["targets"], device=device)
-        count = all_reduce((targets >= 0).sum(), mesh, BATCH_AXES).clamp(min=1)
+        count = all_reduce((targets >= 0).sum(), mesh,
+                           BATCH_AXES + ("cp",)).clamp(min=1)
         work = param_leaves(working_tree(state["params"]))
         for w in work:
             w.requires_grad_(True)
@@ -370,7 +388,8 @@ def _make_mesh_train_step(model, cfg, optimizer, generator, device, mesh,
         norm = _grad_norm([p.grad for p in shards], plans, mesh)
         opt.step(grad_norm=norm)
         state["step"] += 1
-        total = all_reduce(total.detach().clone(), mesh, BATCH_AXES + ("pp",))
+        total = all_reduce(total.detach().clone(), mesh,
+                           BATCH_AXES + ("pp", "cp"))
         aux = aux_term.detach() if torch.is_tensor(aux_term) else aux_term
         return state, {"loss": total / count + aux, "grad_norm": norm}
 

@@ -341,18 +341,97 @@ def test_remat_against_mesh_over_gloo(smoke, world_one, monkeypatch):
 
 def test_rank_attention_shape_of_each_multi_card_plan(smoke):
     """The flash kernels' shape on one rank of each multi-card plan: the
-    batch over dp·fsdp, the heads and kv heads over tp; no plan on one
-    card."""
+    batch over dp·fsdp, the heads and kv heads over tp, the sequence over
+    cp (a ring chunk); no plan on one card."""
     assert smoke.multi_card_plans(1) == []
     shapes = {p["name"]: smoke.rank_attention_shape(p)
               for count in (2, 4) for p in smoke.multi_card_plans(count)}
     assert shapes == {
         "gpt2_124m_fsdp2": ((12, 12, 1024, 64), 12),
         "llama_1b_tp2": ((8, 16, 2048, 64), 4),
+        "gpt2_124m_cp2": ((24, 12, 512, 64), 12),
         "gpt2_124m_fsdp4": ((6, 12, 1024, 64), 12),
         "llama_1b_tp4": ((8, 8, 2048, 64), 2),
+        "gpt2_124m_cp4": ((24, 12, 256, 64), 12),
         "gpt2_124m_fsdp2tp2": ((12, 6, 1024, 64), 6),
+        "llama_1b_cp2tp2": ((8, 16, 1024, 64), 4),
     }
+    # the cp plans' meshes hold as many ranks as the cards
+    for count in (2, 4):
+        for p in smoke.multi_card_plans(count):
+            assert np.prod(list(p["mesh"].values())) <= count, p
+
+
+def test_cp_collectives_formula(smoke):
+    """cp_collectives_per_step by hand: the ring's cp − 1 rotations forward
+    and cp backward a layer (cp − 1 more forward under remat True or
+    "dots"; none on a cp group of one), a gradient sum a leaf, the count's
+    and the loss's."""
+    from ray_tpu_torch.models import gpt2, llama
+
+    # GPT-2: 16 leaves; llama: 12
+    assert smoke.cp_collectives_per_step(gpt2, gpt2.gpt2_124m(), 1) == 16 + 2
+    assert smoke.cp_collectives_per_step(gpt2, gpt2.gpt2_124m(), 4) == 12 * 7 + 16 + 2
+    assert smoke.cp_collectives_per_step(
+        gpt2, gpt2.gpt2_124m(remat=True), 2) == 12 * 4 + 16 + 2
+    assert smoke.cp_collectives_per_step(
+        gpt2, gpt2.gpt2_124m(remat="dots"), 2) == 12 * 4 + 16 + 2
+    assert smoke.cp_collectives_per_step(llama, llama.llama_1b(), 2) == 22 * 3 + 12 + 2
+
+
+@pytest.mark.parametrize("cp,causal", [(1, True), (2, True), (4, True), (4, False)])
+def test_ring_launches_formula_counts_the_schedule(smoke, monkeypatch, cp, causal):
+    """ring_launches against the kernel calls a virtual ring of cp chunks
+    makes on the CPU (the wrappers are counted here in their place), and
+    plain_ring, which the [ring] phase holds the kernels' schedule to,
+    gives the same schedule on the plain versions."""
+    from ray_tpu_torch.ops import ring_attention as R
+
+    calls = []
+    for name in ("_mha_forward_bhsd", "_mha_backward_bhsd"):
+        fn = getattr(R, name)
+        monkeypatch.setattr(R, name, lambda *a, fn=fn, name=name, **kw: (
+            calls.append(name), fn(*a, **kw))[1])
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(1, 2, 32, 16, generator=g) for _ in range(4))
+
+    def run():
+        chunks = [[c.contiguous().requires_grad_(True) for c in x.chunk(cp, 2)]
+                  for x in (q, k, v)]
+        out = R.virtual_ring_attention(*chunks, causal=causal)
+        torch.autograd.backward(out, [c.contiguous() for c in do.chunk(cp, 2)])
+    run()
+    want = smoke.ring_launches(cp, causal)
+    assert calls.count("_mha_forward_bhsd") == calls.count("_mha_backward_bhsd") == want
+    o, grads = smoke.ring_run(q, k, v, do, cp)
+    with smoke.plain_ring():
+        o_p, grads_p = smoke.ring_run(q, k, v, do, cp)
+    dist = smoke.ring_distance(o, grads, o_p, grads_p)
+    assert dist["o"] == 0 and max(dist["rel"].values()) == 0, dist
+
+
+def test_parallel_cp_phase_on_the_cpu(smoke, world_one, capsys):
+    """mesh_against_plain, the [parallel-cp] phase's function, at gpt2_tiny
+    (f32) with attention_impl "ring" over a one-rank gloo mesh, the plain
+    step on "auto": held to the plain step, no kernel launched on the CPU,
+    the collectives over cp the formula's (no rotation on a group of one:
+    the 16 gradient sums and the count's and the loss's); a "ring" config
+    without a plain one fails, as it must: it needs a mesh."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train.train_step import make_gpt2_train_step
+
+    cfg = gpt2.gpt2_tiny(dtype=torch.float32, attention_impl="ring")
+    plain = gpt2.gpt2_tiny(dtype=torch.float32)
+    run = smoke.mesh_against_plain("card", "parallel-cp", "gpt2_tiny", gpt2,
+                                   make_gpt2_train_step, cfg, 2, 2, world_one,
+                                   device="cpu", plain_cfg=plain)
+    assert run["launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+    assert run["collectives"]["cp"] == 3 * smoke.cp_collectives_per_step(gpt2, cfg, 1) == 3 * 18
+    assert "collectives over cp: 54 in 3 steps (the formula: 54)" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="needs a mesh with a cp axis"):
+        smoke.mesh_against_plain("card", "parallel-cp", "gpt2_tiny", gpt2,
+                                 make_gpt2_train_step, cfg, 2, 0, world_one,
+                                 device="cpu")
 
 
 def test_multi_card_ranks_over_gloo(smoke):
@@ -389,3 +468,30 @@ def test_multi_card_ranks_over_gloo(smoke):
         smoke.hold_to_world_one("card", {**plan, "name": "test_tp2",
                                          "mesh": {"tp": 2}}, two, moved,
                                 device="cpu")
+
+
+def test_multi_card_cp_ranks_over_gloo(smoke, capfd):
+    """A multi-card cp plan's processes over gloo on the CPU: gpt2_tiny
+    over cp 2 (the ring between two processes) against the same model at
+    world 1, held by hold_to_world_one: the same first loss on both
+    ranks, near world 1's; each rank's cp index and the collectives over
+    cp of the formula, (cp − 1) + cp rotations a layer a step. Under
+    --profile (the plan's "profile") every rank profiles one more step
+    (a step on some ranks only would leave the others' collectives
+    unmatched)."""
+    from ray_tpu_torch.models import gpt2
+
+    plan = dict(model="gpt2", config="gpt2_tiny", batch=2)
+    one = smoke.run_ranks({**plan, "name": "test_cp_w1", "mesh": {}}, 1,
+                          backend="gloo", device="cpu")
+    two = smoke.run_ranks({**plan, "name": "test_cp2", "mesh": {"cp": 2},
+                           "profile": True}, 2, backend="gloo", device="cpu")
+    out = capfd.readouterr().out
+    assert "[profile] one test_cp2 rank 0 step" in out
+    assert "[profile] one test_cp2 rank 1 step" in out
+    assert [r["cp_rank"] for r in two] == [0, 1]
+    cfg = gpt2.gpt2_tiny(remat=False)
+    assert two[0]["collectives"]["cp"] == (1 + smoke.TRAIN_STEPS) * (
+        2 * 3 + 16 + 2) == (1 + smoke.TRAIN_STEPS) * smoke.cp_collectives_per_step(gpt2, cfg, 2)
+    smoke.hold_to_world_one("card", {**plan, "name": "test_cp2", "mesh": {"cp": 2}},
+                            two, one[0], device="cpu")

@@ -324,6 +324,38 @@ def test_backward_of_a_wholly_masked_kv_chunk_is_exactly_zero(cuda_device, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["forward", "backward"])
+def test_kernel_launches_from_a_thread_that_launched_nothing(cuda_device, kernel):
+    """A thread with no current CUDA context (as the autograd engine's is
+    before its first kernel: ring attention's backward starts with one)
+    launches each kernel: the launcher makes q's device current before it
+    encodes the tensor maps, which fail without a context. Each thread is
+    fresh; the result is the main thread's, bitwise (the forward) or
+    within GRAD_REL (the backward: dq's order)."""
+    import threading
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(2, 2, 256, 64, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = tattn.mha_forward_kernel(q, k, v)
+    call = {"forward": lambda: tattn.mha_forward_kernel(q, k, v),
+            "backward": lambda: tattn.mha_backward_kernel(q, k, v, o, lse, do)}[kernel]
+    want = call()
+    for _ in range(3):
+        got = {}
+        thread = threading.Thread(target=lambda: got.update(out=call()))
+        thread.start()
+        thread.join(timeout=60)
+        assert not thread.is_alive() and "out" in got
+        torch.cuda.synchronize()
+        for a, b in zip(got["out"], want):
+            if kernel == "forward":
+                assert torch.equal(a, b)
+            else:
+                assert rel_err(a, b) <= GRAD_REL
+
+
+@pytest.mark.cuda
 def test_kernel_raises_on_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 1, 16, 64, device=cuda_device)
     lse = torch.zeros(1, 1, 16, device=cuda_device)

@@ -284,7 +284,14 @@ def test_gpt2_dp2_pp2_matches_jax(pp_runs):
     ("n_layer_not_divisible", "ValueError", "not divisible"),
     ("batch_not_divisible_by_microbatches", "ValueError", "not divisible"),
     ("tp_not_dividing_kv_heads", "ValueError", "not divisible"),
-    ("cp2", "NotImplementedError", "ring-attention slice"),
+    ("moe_with_cp", "NotImplementedError", "MoE with cp > 1"),
+    ("pp_with_cp", "NotImplementedError", "pp·cp"),
+    ("pallas_with_cp", "ValueError", "use 'auto' or 'ring'"),
+    ("xla_with_cp", "ValueError", "use 'auto' or 'ring'"),
+    ("seq_len_not_divisible_by_cp", "ValueError",
+     "sequence length 126 not divisible by cp axis size 4"),
+    ("batch_seq_not_divisible_by_cp", "ValueError",
+     "sequence length 126 not divisible by cp axis size 4"),
 ])
 def test_mesh_plan_refusals(pp_runs, case, error, match):
     for _, results in pp_runs[1]["refusals"]:

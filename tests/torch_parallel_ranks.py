@@ -9,7 +9,8 @@ of plans, and for each train or forward plan WORKDIR/<name>.npz (the
 initial params as "init/<leaf>", the batch as "tokens" and "targets"; an
 xent plan's logits and targets); joins a gloo group
 of WORLD ranks by a file:// rendezvous in WORKDIR, with a timeout, so that
-a mismatched collective fails instead of hanging; and writes
+a mismatched collective fails instead of hanging (a ring plan's q, k, v
+and its mesh: ring attention on this rank's block); and writes
 WORKDIR/<name>.<RANK>.npz and WORKDIR/<name>.<RANK>.json with what the
 plan measured (and an MoE plan's routing, by layer call, to
 WORKDIR/<name>.<RANK>.routing.npz).
@@ -28,6 +29,7 @@ import torch
 from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.ops import moe
 from ray_tpu_torch.ops.cross_entropy import vocab_parallel_xent
+from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel import mesh as mesh_lib
 from ray_tpu_torch.parallel import sharding, tensor
 from ray_tpu_torch.train import train_step as ttrain
@@ -86,6 +88,7 @@ def train_plan(plan, workdir: Path, rank: int):
         return g
 
     moe._kept_global, moe._global_queue = moe._global_queue, counting
+    mesh_lib.collectives.clear()
     state, metrics = bundle.state, []
     try:
         for batch in batches:
@@ -100,7 +103,8 @@ def train_plan(plan, workdir: Path, rank: int):
         np.savez(workdir / f"{plan['name']}.{rank}.routing.npz", **routing)
     for name, d in ttrain.named_leaves(sharding.gather_tree(state["params"])):
         out["after/" + name] = d.numpy()
-    meta = {"dropped": dropped, "leaves": {}}
+    meta = {"dropped": dropped, "leaves": {},
+            "collectives": dict(mesh_lib.collectives)}
     opt = state["opt_state"]
     for (name, d), shard in zip(ttrain.named_leaves(state["params"]),
                                 opt.param_groups[0]["params"]):
@@ -167,10 +171,53 @@ def refusal_plan(plan, workdir: Path, rank: int):
     expect("shard_tree_tp_not_dividing", lambda: sharding.shard_tree(
         tp4, llama.init(cfg, torch.Generator().manual_seed(0), device="cpu"),
         llama.logical_axes(cfg)))
-    cp2 = mesh_lib.make_mesh(mesh_lib.MeshSpec(dp=2, cp=2), "cpu")
-    expect("cp2", lambda: ttrain.make_gpt2_train_step(
-        gpt2.gpt2_tiny(), device="cpu", mesh=cp2))
+    dp2cp2 = mesh_lib.make_mesh(mesh_lib.MeshSpec(dp=2, cp=2), "cpu")
+    expect("moe_with_cp", lambda: ttrain.make_gpt2_train_step(
+        gpt2.gpt2_tiny(moe_experts=4, moe_top_k=2), device="cpu", mesh=dp2cp2))
+    pp2cp2 = mesh_lib.make_mesh(mesh_lib.MeshSpec(pp=2, cp=2), "cpu")
+    expect("pp_with_cp", lambda: ttrain.make_gpt2_train_step(
+        gpt2.gpt2_tiny(), device="cpu", mesh=pp2cp2))
+    for impl in ("pallas", "xla"):
+        expect(f"{impl}_with_cp", lambda impl=impl: ttrain.make_llama_train_step(
+            llama.llama_tiny(attention_impl=impl), device="cpu", mesh=dp2cp2))
+    cp4 = mesh_lib.make_mesh(mesh_lib.MeshSpec(cp=4), "cpu")
+    expect("seq_len_not_divisible_by_cp", lambda: ttrain.make_gpt2_train_step(
+        gpt2.gpt2_tiny(seq_len=126), device="cpu", mesh=cp4))
+
+    def batch_not_divisible_by_cp():
+        cfg = gpt2.gpt2_tiny(dtype=torch.float32)
+        bundle = ttrain.make_gpt2_train_step(cfg, device="cpu", mesh=cp4)
+        batch = ttrain.synthetic_batch(cfg, 2)
+        bundle.step_fn(bundle.state, {k: v[:, :126] for k, v in batch.items()})
+    expect("batch_seq_not_divisible_by_cp", batch_not_divisible_by_cp)
     return {}, results
+
+
+def ring_plan(plan, workdir: Path, rank: int):
+    """ring_attention over the plan's mesh on this rank's block of the
+    global q, k, v [B, S, H, hd] (rows over dp·fsdp, positions over cp,
+    heads over tp), causal or not: its output, the gradients of
+    Σ sin(o) over the block, where the block lies, and the exchanges run
+    over cp."""
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(**plan["mesh"]), "cpu")
+    data = np.load(workdir / f"{plan['name']}.npz")
+    B, S, H, _ = data["q"].shape
+    rows = mesh_lib.local_rows(mesh, B)
+    cols = mesh_lib.local_positions(mesh, S)
+    per = H // mesh_lib.axis_size(mesh, ("tp",))
+    heads = slice(mesh.get_local_rank("tp") * per, (mesh.get_local_rank("tp") + 1) * per)
+    q, k, v = (torch.from_numpy(data[n])[rows, cols, heads].transpose(1, 2)
+               .contiguous().requires_grad_(True) for n in "qkv")
+    mesh_lib.collectives.clear()
+    o = ring_attention(q, k, v, mesh, causal=plan["causal"])
+    o.float().sin().sum().backward()
+    out = {"o": o.detach().transpose(1, 2).numpy(),
+           **{f"d{n}": x.grad.transpose(1, 2).numpy()
+              for n, x in zip("qkv", (q, k, v))}}
+    where = {n: [s.start, s.stop] for n, s in
+             (("rows", rows), ("cols", cols), ("heads", heads))}
+    return out, {**where, "cp_rank": mesh.get_local_rank("cp"),
+                 "collectives": dict(mesh_lib.collectives)}
 
 
 def forward_plan(plan, workdir: Path, rank: int):
@@ -224,7 +271,8 @@ def main() -> int:
     try:
         for plan in json.loads((workdir / "plans.json").read_text()):
             run = {"train": train_plan, "refusals": refusal_plan,
-                   "forward": forward_plan, "xent": xent_plan}[plan["kind"]]
+                   "forward": forward_plan, "xent": xent_plan,
+                   "ring": ring_plan}[plan["kind"]]
             out, meta = run(plan, workdir, rank)
             np.savez(workdir / f"{plan['name']}.{rank}.npz", **out)
             (workdir / f"{plan['name']}.{rank}.json").write_text(json.dumps(meta))
