@@ -109,9 +109,16 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    place. [parallel-cp] gpt2_124m(attention_impl="ring") at B 24 x 1024,
    1 + 8 steps, through ring attention on a cp group of one, held to the
    plain step as [parallel] is; the collectives over cp counted against
-   cp_collectives_per_step on every mesh path. With 2 to 4 cards the
-   multi-card runs add GPT-2-124M over cp 2 (cp 4 on four cards) and, on
-   four, llama_1b over cp2·tp2: the ring over NCCL between cards.
+   cp_collectives_per_step on every mesh path. [parallel-moe-cp]
+   gpt2_124m(moe_experts=8, attention_impl="ring") and [parallel-gathered]
+   gpt2_124m(attention_impl="pallas"), each at B 24 x 1024, 1 + 8 steps,
+   held to the plain step the same way: the MoE queue over (batch, cp)
+   and a ring of one; k and v gathered over a cp group of one
+   (ops/gathered_attention.py). With 2 to 4 cards the multi-card runs add
+   GPT-2-124M over cp 2 (cp 4 on four cards), its MoE over cp 2 (fsdp2·cp2
+   on four), gpt2_124m(attention_impl="pallas") over cp 2 and, on four,
+   llama_1b over cp2·tp2 and over pp2·tp2 and GPT-2-124M over pp2·cp2: the
+   ring and the gather over NCCL between cards.
 12. [ring]: ring attention's step schedule (ops/ring_attention.py's
    virtual ring, all cp chunks on this card) at GPT-2-124M's attention
    [24, 12, 1024, 64] and llama_1b's [8, 32, 2048, 64] in 4 chunks,
@@ -124,7 +131,19 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    diagonal one at a non-zero offset, one wholly in the causal future),
    also at each multi-card cp plan's rank shape. It runs after the model
    paths, whose host-bound mesh steps it would otherwise precede.
-13. Print the kernels line (each kernel's numbers by model path), the card's
+13. [gathered]: the gathered path ("pallas" under cp,
+   ops/gathered_attention.py's virtual gather, all cp chunks on this card)
+   at GPT-2-124M's attention [24, 12, 1024, 64] and llama_1b's
+   [8, 32, 2048, 64] (its 8 kv heads gathered, then repeated) over cp 2 and
+   4, and llama_7b's hd-128 attention [1, 32, 4096, 128] over cp 2, forward
+   and backward: cp launches of each kernel a call (gathered_launches),
+   held to the whole-sequence kernels and to the same calls on the plain
+   versions with [ring]'s limits, timed beside the whole-sequence kernels;
+   and each kernel held and timed at each chunk's shape, q
+   [B, H, S/cp, hd] at offset r·S/cp against k and v [B, H, S, hd], beside
+   SDPA with an explicit boolean mask (is_causal aligns top-left), on the
+   first backend that takes it (named in the row).
+14. Print the kernels line (each kernel's numbers by model path), the card's
    name and power limit, and last the result line {"ok": true, ...}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -325,11 +344,21 @@ def bound(nbytes: int, flops: int):
             nbytes, flops)
 
 
+def kv_rows_needed(Sq, Skv, q_off, kv_off, causal) -> int:
+    """The kv rows some query of this call sees: those past the last
+    query's position are never needed under a causal mask."""
+    if not causal:
+        return Skv
+    return max(0, min(Skv, q_off + Sq - kv_off))
+
+
 def attention_bound(q, k, q_off, kv_off, causal):
     B, H, Sq, hd = q.shape
     Skv = k.shape[2]
-    # q, k, v read once; o (bf16) and lse (f32) written once
-    nbytes = 2 * B * H * (2 * Sq + 2 * Skv) * hd + 4 * B * H * Sq
+    kv = kv_rows_needed(Sq, Skv, q_off, kv_off, causal)
+    # q and the k, v rows it sees read once; o (bf16) and lse (f32)
+    # written once
+    nbytes = 2 * B * H * (2 * Sq + 2 * kv) * hd + 4 * B * H * Sq
     # s = q.k^T and o = p.v: 2 products of 2 * hd operations per pair
     flops = 4 * hd * B * H * visible_pairs(Sq, Skv, q_off, kv_off, causal)
     return bound(nbytes, flops)
@@ -338,8 +367,10 @@ def attention_bound(q, k, q_off, kv_off, causal):
 def attention_bwd_bound(q, k, q_off, kv_off, causal):
     B, H, Sq, hd = q.shape
     Skv = k.shape[2]
-    # q, o, do, k, v (bf16) and lse (f32) read once; dq, dk, dv written once
-    nbytes = 2 * B * H * (4 * Sq + 4 * Skv) * hd + 4 * B * H * Sq
+    kv = kv_rows_needed(Sq, Skv, q_off, kv_off, causal)
+    # q, o, do, the k, v rows the queries see (bf16) and lse (f32) read
+    # once; dq, dk, dv written once (dk, dv over every kv row)
+    nbytes = 2 * B * H * (4 * Sq + 2 * kv + 2 * Skv) * hd + 4 * B * H * Sq
     # s, dp, dv, dk, dq: 5 products of 2 * hd operations per visible pair
     flops = 10 * hd * B * H * visible_pairs(Sq, Skv, q_off, kv_off, causal)
     return bound(nbytes, flops)
@@ -460,7 +491,8 @@ def sdpa(q, k, v, causal):
     return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
 
-def forward_case(name, q, k, v, q_off=0, kv_off=0, causal=True, library=None):
+def forward_case(name, q, k, v, q_off=0, kv_off=0, causal=True, library=None,
+                 library_name="sdpa"):
     """flash_fwd against mha_forward_plain on the same inputs, timed; fails
     outside O_TOL / LSE_TOL. Returns (row, o, lse) of the kernel."""
     from ray_tpu_torch.ops import attention as A
@@ -484,7 +516,8 @@ def forward_case(name, q, k, v, q_off=0, kv_off=0, causal=True, library=None):
                kv_off=kv_off, causal=causal, o_err=o_err, lse_err=lse_err,
                max_abs_err=max(o_err, lse_err),
                ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms, library=library_name if library else None,
+               bound_ms=bound_ms, bound_by=bound_by,
                bytes=nbytes, flops=flops, bound_share=bound_ms / ms)
     log(f"[kernel] {json.dumps(row)}")
     if not (o_err <= O_TOL and lse_err <= LSE_TOL):
@@ -672,10 +705,13 @@ def compare_backward(src: str, gen):
 
 
 def backward_case(name, q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True,
-                  library=None):
+                  library=None, library_name="sdpa flash backward alone",
+                  library_base=None):
     """flash_bwd against mha_backward_plain on the same inputs, timed (the
     wrapper and its C call alone); fails outside GRAD_REL_TOL and
-    MEAN_REL_TOL. Returns (row, (dq, dk, dv) of the kernel)."""
+    MEAN_REL_TOL. The library's time is library()'s less library_base()'s
+    where that is given (a forward and backward less the forward). Returns
+    (row, (dq, dk, dv) of the kernel)."""
     from ray_tpu_torch.ops import attention as A
 
     args = (q, k, v, o, lse, do, q_off, kv_off)
@@ -693,6 +729,8 @@ def backward_case(name, q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True,
     plain_ms = cuda_ms(lambda: A.mha_backward_plain(*args, causal=causal),
                        iters=3, warmup=1)
     library_ms = cuda_ms(library) if library else None
+    if library and library_base:
+        library_ms -= cuda_ms(library_base)
     bound_ms, bound_by, nbytes, flops = attention_bwd_bound(
         q, k, q_off, kv_off, causal)
     row = dict(case=name, shape=list(q.shape), skv=k.shape[2], q_off=q_off,
@@ -700,7 +738,7 @@ def backward_case(name, q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True,
                mean_rel_err=mean_errs, max_abs_err=max_abs,
                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                library_ms=library_ms,
-               library="sdpa flash backward alone" if library else None,
+               library=library_name if library else None,
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops, bound_share=bound_ms / ms)
     log(f"[kernel-bwd] {json.dumps(row)}")
@@ -999,8 +1037,8 @@ def ring_phase(card: str, gen) -> dict:
     seen = {((TRAIN_BATCH, 12, 1024 // RING_CP, 64), 12): out["gpt2_124m"]["rows"]}
     for plan in multi_card_plans(torch.cuda.device_count()):
         cp = plan["mesh"].get("cp", 1)
-        if cp == 1:
-            continue
+        if cp == 1 or gathered_plan(plan):
+            continue        # no ring; the gathered path's rows: [gathered]
         (B, H, Sc, hd), kv = rank_attention_shape(plan)
         if ((B, H, Sc, hd), kv) not in seen:
             from ray_tpu_torch.ops import attention as A
@@ -1018,6 +1056,214 @@ def ring_phase(card: str, gen) -> dict:
         rows = seen[((B, H, Sc, hd), kv)]
         out[f"fwd_rank_{plan['name']}"] = rows["fwd_diagonal"]
         out[f"rank_{plan['name']}"] = rows["diagonal"]
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# [gathered]: "pallas" attention under cp (k and v gathered) on the card
+# --------------------------------------------------------------------------- #
+
+GATHERED_CPS = (2, 4)
+# the SDPA backends, in SDPA's own order of preference, tried one at a time
+# for a call with an explicit mask: the first that takes it is the yardstick
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def gathered_launches(cp: int) -> int:
+    """Each kernel's launches in one forward (or backward) of a virtual
+    gathered attention over cp chunks (ops/gathered_attention.py): one a
+    chunk, its queries against the whole sequence."""
+    return cp
+
+
+def group_sum(g, kv_heads: int):
+    """[B, H, S, hd] gradients of kv heads repeated in place to H → their
+    sums over each group, [B, KH, S, hd], as the repeat's backward sums
+    them (in g's dtype)."""
+    B, H, S, hd = g.shape
+    return g.view(B, kv_heads, H // kv_heads, S, hd).sum(2)
+
+
+def gathered_run(q, k, v, do, cp: int):
+    """q [B, H, S, hd], k and v [B, KH, S, hd] as cp chunks through
+    virtual_gathered_attention ("pallas"), forward and backward with the
+    gradient do: (o, (dq, dk, dv)), each put back together along S."""
+    from ray_tpu_torch.ops.gathered_attention import virtual_gathered_attention
+
+    chunks = [[c.contiguous().requires_grad_(True) for c in x.detach().chunk(cp, 2)]
+              for x in (q, k, v)]
+    out = virtual_gathered_attention(*chunks, impl="pallas")
+    grads = torch.autograd.grad(out, [c for cs in chunks for c in cs],
+                                [c.contiguous() for c in do.chunk(cp, 2)])
+    return (torch.cat(out, 2).detach(),
+            tuple(torch.cat(grads[i * cp:(i + 1) * cp], 2) for i in range(3)))
+
+
+def gathered_schedule(q, k, v, do, cp: int, outs=None, lses=None, plain=False):
+    """The gathered path's kernel calls made directly (no autograd): each
+    chunk's queries against the whole k and v (repeated to H) at the
+    chunk's offset, forward (o, lse by chunk), then backward from `outs`
+    and `lses` where given (else the forward's), the chunks' dk and dv
+    summed over each kv group in the input dtype, then over the chunks in
+    f32 and cast once, as the path rounds them. On the kernels, or with
+    `plain` on the plain versions. Returns (the forward's (o, lse) by
+    chunk, (dq, dk, dv) joined)."""
+    from ray_tpu_torch.ops import attention as A
+
+    fwd_fn, bwd_fn = ((A.mha_forward_plain, A.mha_backward_plain) if plain
+                      else (A.mha_forward_kernel, A.mha_backward_kernel))
+    H, S, KH = q.shape[1], q.shape[2], k.shape[1]
+    Sc = S // cp
+    kr, vr = (x.repeat_interleave(H // KH, dim=1).contiguous() for x in (k, v))
+    qs, dos = ([c.contiguous() for c in x.detach().chunk(cp, 2)] for x in (q, do))
+    fwd = [fwd_fn(qs[r], kr, vr, r * Sc, 0) for r in range(cp)]
+    outs = outs or [o for o, _ in fwd]
+    lses = lses or [lse for _, lse in fwd]
+    dq, dk, dv = [], 0, 0
+    for r in range(cp):
+        g = bwd_fn(qs[r], kr, vr, outs[r], lses[r], dos[r], r * Sc, 0)
+        dq.append(g[0])
+        dk = dk + group_sum(g[1], KH).float()
+        dv = dv + group_sum(g[2], KH).float()
+    return fwd, (torch.cat(dq, 2), dk.to(k.dtype), dv.to(v.dtype))
+
+
+def sdpa_masked(q, k, v, q_off: int, backward_do=None):
+    """SDPA with an explicit boolean mask of the causal rows q_off.. against
+    keys 0.. (is_causal aligns its mask top-left, which is wrong where
+    Sq != Skv), on the first backend of SDPA_BACKENDS that takes it: (the
+    forward call, the backend's name), or with `backward_do` (the forward
+    and backward call, the forward call, the name). The library yardstick;
+    the port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    Sq, Skv = q.shape[2], k.shape[2]
+    rows = q_off + torch.arange(Sq, device=q.device)[:, None]
+    mask = rows >= torch.arange(Skv, device=q.device)[None, :]
+    grad = backward_do is not None
+    qg, kg, vg = (x.detach().requires_grad_(grad) for x in (q, k, v))
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name)
+
+        def fwd(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+
+        def fwd_bwd(fwd=fwd):
+            return torch.autograd.grad(fwd(), (qg, kg, vg), backward_do)
+        try:
+            (fwd_bwd if grad else fwd)()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return (fwd_bwd, fwd, name) if grad else (fwd, name)
+    fail("no SDPA backend takes an explicit mask")
+
+
+def gathered_chunk_rows(name: str, q, k, v, o, lse, do, cp: int) -> dict:
+    """flash_fwd and flash_bwd at each chunk's shape on the gathered path,
+    q [B, H, S/cp, hd] at offset r·S/cp against the whole k and v
+    [B, H, S, hd] (forward_case, backward_case: held to the plain versions,
+    timed beside the bound and SDPA with the explicit mask; the backward
+    from the whole sequence's o and lse, which are the chunk's). Rows
+    fwd_q@<offset> and q@<offset>."""
+    Sc = q.shape[2] // cp
+    rows = {}
+    for r in range(cp):
+        qc, oc, lc, dc = (x[:, :, r * Sc:(r + 1) * Sc].contiguous()
+                          for x in (q, o, lse, do))
+        label = f"{name}, gathered cp {cp}: q@{r * Sc} (S/cp {Sc}) vs kv@0 (S {q.shape[2]})"
+        fwd, lib = sdpa_masked(qc, k, v, r * Sc)
+        rows[f"fwd_q@{r * Sc}"], _, _ = forward_case(
+            label, qc, k, v, r * Sc, 0, library=fwd,
+            library_name=f"sdpa {lib}, explicit mask")
+        fwd_bwd, fwd, lib = sdpa_masked(qc, k, v, r * Sc, backward_do=dc)
+        rows[f"q@{r * Sc}"], _ = backward_case(
+            label, qc, k, v, oc, lc, dc, r * Sc, 0, library=fwd_bwd,
+            library_base=fwd,
+            library_name=f"sdpa {lib}, explicit mask: forward + backward less forward")
+    return rows
+
+
+def gathered_case(card: str, name: str, shape, kv_heads: int, cp: int, gen) -> dict:
+    """[gathered] at one shape and cp: q [B, H, S, hd], k and v
+    [B, KH, S, hd] bf16 as cp chunks through the virtual gathered path
+    ("pallas"), forward and backward, launches counted (counts set to 0
+    just before, read just after) against gathered_launches; held to the
+    whole-sequence kernels (k and v repeated to H, dk and dv summed over
+    each kv group: o within O_TOL, each gradient within GRAD_REL_TOL and
+    RING_WHOLE_MEAN_REL_TOL, [ring]'s basis: each chunk's dk and dv round
+    to bf16 before their f32 sum) and to the same calls on the plain
+    versions (gathered_schedule: o within O_TOL and lse within LSE_TOL from
+    q, k, v; each gradient within GRAD_REL_TOL and MEAN_REL_TOL from the
+    kernels' outputs and lse); timed beside the whole-sequence kernels;
+    then gathered_chunk_rows. Returns the launches and the rows."""
+    from ray_tpu_torch.ops import attention as A
+
+    B, H, S, hd = shape
+    q, do = (torch.randn(*shape, generator=gen, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, kv_heads, S, hd, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    kr, vr = (x.repeat_interleave(H // kv_heads, dim=1).contiguous() for x in (k, v))
+    o_w, lse_w = A.mha_forward_kernel(q, kr, vr)
+    dq_w, dk_w, dv_w = A.mha_backward_kernel(q, kr, vr, o_w, lse_w, do)
+    g_w = (dq_w, group_sum(dk_w, kv_heads), group_sum(dv_w, kv_heads))
+    del dq_w, dk_w, dv_w
+    reset_launches()
+    o, grads = gathered_run(q, k, v, do, cp)
+    torch.cuda.synchronize()
+    launches = launches_since_reset()
+    whole = ring_distance(o, grads, o_w, g_w)
+    fwd, _ = gathered_schedule(q, k, v, do, cp)
+    outs, lses = [o_c for o_c, _ in fwd], [lse for _, lse in fwd]
+    fwd_p, g_p = gathered_schedule(q, k, v, do, cp, outs, lses, plain=True)
+    plain = ring_distance(o, grads, torch.cat([o_c for o_c, _ in fwd_p], 2), g_p)
+    plain["lse"] = max((a - b).abs().max().item()
+                       for a, (_, b) in zip(lses, fwd_p))
+    del fwd, fwd_p, g_p, outs, lses, g_w
+    expected = gathered_launches(cp)
+    ms = cuda_ms(lambda: gathered_run(q, k, v, do, cp), iters=5)
+    whole_ms = cuda_ms(lambda: A.mha_backward_kernel(
+        q, kr, vr, *A.mha_forward_kernel(q, kr, vr), do), iters=5)
+    log("[gathered] " + json.dumps(dict(
+        card=card, case=name, shape=list(shape), kv_heads=kv_heads, cp=cp,
+        launches=launches, expected_launches=expected,
+        vs_whole_sequence=whole, vs_plain_versions=plain,
+        gathered_fwd_bwd_ms=ms, whole_sequence_fwd_bwd_ms=whole_ms)))
+    if launches != {"flash_fwd": expected, "flash_bwd": expected}:
+        fail(f"gathered {name} cp {cp}: launches {launches}, the formula "
+             f"says {expected} each")
+    for against, dist_, mean_tol in (("the whole-sequence kernels", whole,
+                                      RING_WHOLE_MEAN_REL_TOL),
+                                     ("the plain versions", plain, MEAN_REL_TOL)):
+        if not (dist_["o"] <= O_TOL and dist_.get("lse", 0) <= LSE_TOL
+                and all(e <= GRAD_REL_TOL for e in dist_["rel"].values())
+                and all(e <= mean_tol for e in dist_["mean"].values())):
+            fail(f"gathered {name} cp {cp} disagrees with {against}: {dist_}")
+    rows = gathered_chunk_rows(name, q, kr, vr, o_w, lse_w, do, cp)
+    return {"launches": launches, "rows": rows}
+
+
+# [gathered]'s shapes: (name, [B, H, S, hd], kv heads, the cps run)
+GATHERED_SHAPES = (
+    ("gpt2_124m", (TRAIN_BATCH, 12, 1024, 64), 12, GATHERED_CPS),
+    ("llama_1b", (LLAMA_TRAIN_BATCH, 32, 2048, 64), 8, GATHERED_CPS),
+    # hd 128 (llama_7b's width, its gradient check's sequence): the
+    # kernels' other tiling at Sq != Skv
+    ("llama_7b", (1, 32, 4096, 128), 32, (2,)),
+)
+
+
+def gathered_phase(card: str, gen) -> dict:
+    """[gathered]: gathered_case at each of GATHERED_SHAPES and its cps.
+    Returns each case by "<name>_cp<cp>"."""
+    out = {}
+    for name, shape, kv, cps in GATHERED_SHAPES:
+        for cp in cps:
+            out[f"{name}_cp{cp}"] = gathered_case(card, name, shape, kv, cp, gen)
+            free_device_memory()
     return out
 
 
@@ -1642,6 +1888,16 @@ def llama_hd128_gradients() -> None:
 # 1.8e-2, so [parallel-tp] holds each gradient to twice that spread.
 MESH_LOSS_REL_TOL = 1e-6
 MESH_NORM_REL_TOL = 1e-3
+# a multi-card MoE plan against its world-1 step: the bf16 activations
+# that reach the router are rounded otherwise (the ring's chunks, the
+# rows split over fsdp), which sends near-tie choices to other experts and
+# moves the drops of later tokens ([moe-train]: 1 % of decisions between
+# two attention paths, gradients up to 0.10 of a leaf's max-abs apart).
+# Measured on four H100 80GB HBM3 cards at 700 W (gpt2_124m(moe_experts=8)
+# over fsdp2·cp2 at B 24): loss 5.8e-5 from world 1, grad norm 2.7e-3
+# relative, where the dense plans stay within 2.6e-4. The loss keeps
+# LOSS_TOL; the grad norm is held to about four times what was measured.
+MOE_MESH_NORM_REL_TOL = 1e-2
 LLAMA_MESH_GRAD_REL_TOL = 4e-2
 MULTI_CARD_MAX = 4
 
@@ -1729,20 +1985,55 @@ def tp_collectives_per_step(model, cfg) -> int:
     return per_layer * cfg.n_layer + 1 + 1 + 2 + len(keys) + whole
 
 
-def cp_collectives_per_step(model, cfg, cp: int) -> int:
-    """The collectives over cp that one meshed train step runs (dense
-    blocks, pp 1; ops/ring_attention.py): in each layer the ring's
-    rotations, cp − 1 forward and cp backward (one more forward round for
-    a checkpointed block, remat True or "dots", whose ring runs again;
-    none on a cp group of one, where a rotation moves nothing); then a
-    gradient sum
-    over cp for every leaf (each rank holds every parameter whole over cp),
-    and the sums of the count of targets and of the loss."""
+def blocks_per_step(model, cfg, pp: int = 1) -> int:
+    """The blocks one rank runs in a step: every layer, or in a GPT-2
+    pipeline over pp its stage's L/pp layers for each microbatch (Llama
+    runs no pipeline: pp is a replica axis)."""
+    from ray_tpu_torch.models import gpt2
+
+    if pp > 1 and model is gpt2:
+        return cfg.n_layer // pp * (cfg.pipeline_microbatches or pp)
+    return cfg.n_layer
+
+
+def launches_per_step(model, cfg, cp: int, cp_rank: int, pp: int = 1) -> int:
+    """Each kernel's launches on one rank of a mesh in a step (on the card):
+    one a block it runs, or on a ring cp_rank + 1 (a kv chunk wholly in
+    the causal future is skipped); "xla" launches none."""
+    from ray_tpu_torch.models.common import attention_path
+
+    if cfg.attention_impl == "xla":
+        return 0
+    ring = attention_path(cfg.attention_impl, cp) == "ring"
+    return blocks_per_step(model, cfg, pp) * (cp_rank + 1 if ring else 1)
+
+
+def cp_collectives_per_step(model, cfg, cp: int, pp: int = 1) -> int:
+    """The collectives over cp that one meshed train step runs on a rank
+    (PERF.md §6): in each block it runs (blocks_per_step), the ring's
+    rotations, cp − 1 forward and cp backward (none on a cp group of one,
+    where a rotation moves nothing), or on the gathered path ("pallas" and
+    "xla" under a mesh, ops/gathered_attention.py) one all-gather of k and
+    v forward and one reduce-scatter of dk and dv backward, on a group of
+    one too; the attention's forward collectives once more for a
+    checkpointed block (remat True or "dots"), which runs again; an MoE
+    block's queue all-gather and its load-balancing loss's two sums (no
+    smoke path runs MoE blocks with remat); then a gradient sum over cp for
+    every leaf (each rank holds every parameter whole over cp), and the
+    sums of the count of targets and of the loss."""
+    from ray_tpu_torch.models.common import attention_path
     from ray_tpu_torch.train.train_step import named_leaves
 
-    rotations = 0 if cp == 1 else (cp - 1) + cp + (cp - 1 if cfg.remat else 0)
+    path = attention_path(cfg.attention_impl, cp)
+    if path == "ring":
+        fwd, bwd = (0, 0) if cp == 1 else (cp - 1, cp)
+    elif path == "gathered":
+        fwd, bwd = 1, 1
+    else:
+        fwd, bwd = 0, 0
+    per_block = fwd * (2 if cfg.remat else 1) + bwd + (3 if is_moe(cfg) else 0)
     leaves = len(list(named_leaves(model.logical_axes(cfg))))
-    return rotations * cfg.n_layer + leaves + 2
+    return per_block * blocks_per_step(model, cfg, pp) + leaves + 2
 
 
 def first_step_distance(a: dict, b: dict) -> dict:
@@ -1965,8 +2256,13 @@ def multi_card_plans(count: int) -> list:
     """The multi-card runs on `count` visible cards (at most
     MULTI_CARD_MAX used; none on one card): GPT-2-124M over fsdp on every
     card; llama_1b over tp 2, or tp 4 on four cards; GPT-2-124M over cp 2,
-    or cp 4 on four cards; on four, GPT-2-124M over fsdp2·tp2 and llama_1b
-    over cp2·tp2."""
+    or cp 4 on four cards; gpt2_124m(moe_experts=8) over cp 2, or
+    fsdp2·cp2 on four cards; gpt2_124m(attention_impl="pallas") over cp 2
+    (the gathered path); on four, GPT-2-124M over fsdp2·tp2 and over
+    pp2·cp2 (4 microbatches), llama_1b over cp2·tp2 and over pp2·tp2 (pp a
+    replica axis). A plan's "overrides" change its config, and
+    "reference" names the world-1 run it is held to (default: its
+    model's)."""
     if count < 2:
         return []
     world = min(count, MULTI_CARD_MAX)
@@ -1977,26 +2273,59 @@ def multi_card_plans(count: int) -> list:
                   mesh={"tp": tp}, batch=LLAMA_TRAIN_BATCH),
              dict(name=f"gpt2_124m_cp{tp}", model="gpt2", config="gpt2_124m",
                   mesh={"cp": tp}, batch=TRAIN_BATCH)]
+    moe_mesh = {"fsdp": 2, "cp": 2} if world == 4 else {"cp": 2}
+    plans += [dict(name="gpt2_124m_moe8_" + "".join(f"{a}{n}" for a, n in moe_mesh.items()),
+                   model="gpt2", config="gpt2_124m",
+                   overrides={"moe_experts": MOE_EXPERTS}, reference="gpt2_moe8",
+                   mesh=moe_mesh, batch=TRAIN_BATCH),
+              dict(name="gpt2_124m_pallas_cp2", model="gpt2", config="gpt2_124m",
+                   overrides={"attention_impl": "pallas"}, mesh={"cp": 2},
+                   batch=TRAIN_BATCH)]
     if world == 4:
         plans += [dict(name="gpt2_124m_fsdp2tp2", model="gpt2",
                        config="gpt2_124m", mesh={"fsdp": 2, "tp": 2},
                        batch=TRAIN_BATCH),
                   dict(name="llama_1b_cp2tp2", model="llama", config="llama_1b",
-                       mesh={"cp": 2, "tp": 2}, batch=LLAMA_TRAIN_BATCH)]
+                       mesh={"cp": 2, "tp": 2}, batch=LLAMA_TRAIN_BATCH),
+                  dict(name="gpt2_124m_pp2cp2", model="gpt2", config="gpt2_124m",
+                       overrides={"pipeline_microbatches": 4},
+                       mesh={"pp": 2, "cp": 2}, batch=TRAIN_BATCH),
+                  dict(name="llama_1b_pp2tp2", model="llama", config="llama_1b",
+                       mesh={"pp": 2, "tp": 2}, batch=LLAMA_TRAIN_BATCH)]
     return plans
 
 
-def rank_attention_shape(plan: dict):
-    """The q, k and v shape [B, H, S, hd] that one rank of a multi-card plan
-    gives the flash kernels, and how many kv heads it holds before it
-    repeats them to H: the batch split over dp·fsdp, the heads and kv
-    heads over tp, the sequence over cp (a ring chunk)."""
+def plan_model(plan: dict):
+    """(model module, config) of a multi-card plan, remat off, with its
+    overrides."""
     from ray_tpu_torch.models import gpt2, llama
 
     model = {"gpt2": gpt2, "llama": llama}[plan["model"]]
-    cfg = getattr(model, plan["config"])()
-    mesh = {"dp": 1, "fsdp": 1, "tp": 1, "cp": 1, **plan["mesh"]}
+    return model, getattr(model, plan["config"])(remat=False,
+                                                 **plan.get("overrides", {}))
+
+
+def gathered_plan(plan: dict) -> bool:
+    """Whether a multi-card plan's attention takes the gathered path."""
+    from ray_tpu_torch.models.common import attention_path
+
+    _, cfg = plan_model(plan)
+    return attention_path(cfg.attention_impl, plan["mesh"].get("cp", 1)) == "gathered"
+
+
+def rank_attention_shape(plan: dict):
+    """The q shape [B, H, S, hd] that one rank of a multi-card plan gives
+    the flash kernels, and how many kv heads it holds before it repeats
+    them to H: the batch split over dp·fsdp (and a pipeline's microbatches),
+    the heads and kv heads over tp, the sequence over cp (a ring chunk; on
+    the gathered path the queries' chunk, against the whole sequence)."""
+    from ray_tpu_torch.models import gpt2
+
+    model, cfg = plan_model(plan)
+    mesh = {"dp": 1, "fsdp": 1, "tp": 1, "cp": 1, "pp": 1, **plan["mesh"]}
     rows = plan["batch"] // (mesh["dp"] * mesh["fsdp"])
+    if mesh["pp"] > 1 and model is gpt2:
+        rows //= cfg.pipeline_microbatches or mesh["pp"]
     kv = getattr(cfg, "n_kv_head", cfg.n_head)
     return ((rows, cfg.n_head // mesh["tp"], cfg.seq_len // mesh["cp"],
              cfg.head_dim), kv // mesh["tp"])
@@ -2005,12 +2334,12 @@ def rank_attention_shape(plan: dict):
 def mesh_rank(rank: int, init_method: str, out: str, plan: dict,
               backend: str = "nccl", device: str = "cuda") -> None:
     """One rank of a multi-card run (multi_card starts one process a card):
-    the plan's model (remat off) over its MeshSpec at its global batch, as
+    the plan's model (remat off, its overrides) over its MeshSpec at its
+    global batch, as
     train_run (profiling one more step when the plan says "profile");
     writes this rank's first step's metrics, step times,
     launches, collectives, index on the cp axis and peak memory to `out`
     (JSON)."""
-    from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.parallel import mesh as mesh_lib
     from ray_tpu_torch.train.train_step import (
         make_gpt2_train_step, make_llama_train_step, synthetic_batch,
@@ -2020,9 +2349,9 @@ def mesh_rank(rank: int, init_method: str, out: str, plan: dict,
     mesh_lib.init_distributed(backend, init_method=init_method, rank=rank,
                               world_size=spec.num_devices, timeout_s=300)
     try:
-        model, make = {"gpt2": (gpt2, make_gpt2_train_step),
-                       "llama": (llama, make_llama_train_step)}[plan["model"]]
-        cfg = getattr(model, plan["config"])(remat=False)
+        make = {"gpt2": make_gpt2_train_step,
+                "llama": make_llama_train_step}[plan["model"]]
+        _, cfg = plan_model(plan)
         mesh = mesh_lib.make_mesh(spec, device)
         # every rank profiles its extra step: a step on some ranks only
         # would leave the others' collectives unmatched
@@ -2033,6 +2362,7 @@ def mesh_rank(rank: int, init_method: str, out: str, plan: dict,
             {**{k: run[k] for k in ("first", "loss", "grad_norm", "step_ms",
                                      "launches", "collectives")},
              "cp_rank": mesh.get_local_rank("cp"),
+             "pp_rank": mesh.get_local_rank("pp"),
              "peak_memory_bytes": peak_memory(device)}))
     finally:
         torch.distributed.destroy_process_group()
@@ -2079,27 +2409,29 @@ def hold_to_world_one(card: str, plan: dict, ranks: list, ref: dict,
     row-parallel products sum their partial sums in another order, so the
     products round on other shapes; measured on four H100s: loss 9.5e-7
     to 2.9e-4 apart, grad norm 6.7e-6 to 9.0e-5, inside the plain step's
-    own grad-norm spread of up to 1.6e-4), every rank the same loss; each
-    kernel once per layer per step on every rank, or over cp (a ring)
-    cp_rank + 1 times (the plain versions off the card); the collectives
-    over tp and cp as tp_collectives_per_step and cp_collectives_per_step
-    say (on groups of one too). Prints step ms, tokens/s per card and peak
-    memory per card."""
-    from ray_tpu_torch.models import gpt2, llama
+    own grad-norm spread of up to 1.6e-4; an MoE plan's grad norm within
+    MOE_MESH_NORM_REL_TOL, its routing flips), every rank the same loss; each
+    kernel as often on every rank as launches_per_step says (the plain
+    versions off the card); the collectives over cp as
+    cp_collectives_per_step says, and over tp as tp_collectives_per_step
+    says where the plan runs no pipeline (on groups of one too). Prints
+    step ms, tokens/s per card and peak memory per card."""
+    from ray_tpu_torch.models import gpt2
 
     run, world = ranks[0], len(ranks)
-    model = {"gpt2": gpt2, "llama": llama}[plan["model"]]
-    cfg = getattr(model, plan["config"])(remat=False)
-    cp = plan["mesh"].get("cp", 1)
+    model, cfg = plan_model(plan)
+    cp, pp = plan["mesh"].get("cp", 1), plan["mesh"].get("pp", 1)
     loss_err = abs(run["first"]["loss"] - ref["first"]["loss"])
     norm_err = (abs(run["first"]["grad_norm"] - ref["first"]["grad_norm"])
                 / ref["first"]["grad_norm"])
     step = sorted(run["step_ms"])[len(run["step_ms"]) // 2]
     steps = 1 + len(run["step_ms"])
-    want = {"tp": tp_collectives_per_step(model, cfg) * steps,
-            "cp": cp_collectives_per_step(model, cfg, cp) * steps}
+    want = {"cp": cp_collectives_per_step(model, cfg, cp, pp) * steps}
+    if not (pp > 1 and model is gpt2):
+        want["tp"] = tp_collectives_per_step(model, cfg) * steps
     log(f"[parallel] " + json.dumps(dict(
         card=card, cards=world, mesh=plan["mesh"], model=plan["config"],
+        overrides=plan.get("overrides", {}),
         batch=plan["batch"], seq_len=cfg.seq_len, first=run["first"],
         world_one_first=ref["first"], loss_err=loss_err,
         grad_norm_rel_err=norm_err, loss=run["loss"],
@@ -2109,14 +2441,16 @@ def hold_to_world_one(card: str, plan: dict, ranks: list, ref: dict,
         peak_memory_bytes_per_card=[r["peak_memory_bytes"] for r in ranks],
         launches_by_rank=[r["launches"] for r in ranks],
         collectives=run["collectives"], collectives_formula=want)))
-    if not (loss_err <= LOSS_TOL and norm_err <= MESH_NORM_REL_TOL):
+    norm_tol = MOE_MESH_NORM_REL_TOL if is_moe(cfg) else MESH_NORM_REL_TOL
+    if not (loss_err <= LOSS_TOL and norm_err <= norm_tol):
         fail(f"multi-card {plan['name']} disagrees with the world-1 step: "
-             f"loss {loss_err}, grad norm {norm_err}")
+             f"loss {loss_err}, grad norm {norm_err} (tol {norm_tol})")
     if len({r["first"]["loss"] for r in ranks}) != 1:
         fail(f"multi-card {plan['name']}: the ranks' losses differ")
     on_card = torch.device(device).type == "cuda"
     for r in ranks:
-        expected = cfg.n_layer * steps * (r["cp_rank"] + 1) if on_card else 0
+        expected = (launches_per_step(model, cfg, cp, r["cp_rank"], pp) * steps
+                    if on_card else 0)
         if r["launches"] != {"flash_fwd": expected, "flash_bwd": expected}:
             fail(f"multi-card {plan['name']}: a rank at cp index "
                  f"{r['cp_rank']} launched {r['launches']}, expected "
@@ -2129,8 +2463,9 @@ def hold_to_world_one(card: str, plan: dict, ranks: list, ref: dict,
 
 def multi_card(card: str, world_one: dict, profile: bool = False) -> dict:
     """With 2 or more cards: each of multi_card_plans, one NCCL rank a card,
-    held to the world-1 mesh run of its model (world_one["gpt2"] or
-    ["llama"]) by hold_to_world_one; with `profile`, every rank of each
+    held to the world-1 mesh run of its model or its "reference"
+    (world_one["gpt2"], ["llama"] or ["gpt2_moe8"]) by hold_to_world_one;
+    with `profile`, every rank of each
     also profiles one more step by kernel. With one card
     it says that the run did not take place. Returns the launches of rank
     0 by plan."""
@@ -2143,7 +2478,8 @@ def multi_card(card: str, world_one: dict, profile: bool = False) -> dict:
     for plan in multi_card_plans(count):
         ranks = run_ranks({**plan, "profile": profile},
                           math.prod(plan["mesh"].values()))
-        hold_to_world_one(card, plan, ranks, world_one[plan["model"]])
+        hold_to_world_one(card, plan, ranks,
+                          world_one[plan.get("reference", plan["model"])])
         launches[plan["name"]] = ranks[0]["launches"]
     return launches
 
@@ -2152,8 +2488,9 @@ def multi_card_check(profile: bool = False) -> int:
     """The multi-card runs and what they are held to, alone, for a machine
     with 2 to 4 cards: python3 -c "import chip_smoke, sys;
     sys.exit(chip_smoke.multi_card_check())". Builds the kernels, trains
-    GPT-2-124M and llama_1b through the world-1 mesh path (one NCCL rank,
-    card 0) as the [parallel] and [parallel-tp] phases do, then each of
+    GPT-2-124M, its MoE (on a ring of one) and llama_1b through the world-1
+    mesh path (one NCCL rank, card 0) as the [parallel], [parallel-moe-cp]
+    and [parallel-tp] phases do, then each of
     multi_card_plans over the cards (multi_card; with `profile`, every rank
     profiles one more step: multi_card_check(True))."""
     from ray_tpu_torch.models import gpt2, llama
@@ -2177,6 +2514,9 @@ def multi_card_check(profile: bool = False) -> int:
         for key, make, cfg, batch in (
                 ("gpt2", make_gpt2_train_step, gpt2.gpt2_124m(remat=False),
                  TRAIN_BATCH),
+                ("gpt2_moe8", make_gpt2_train_step,
+                 gpt2.gpt2_124m(moe_experts=MOE_EXPERTS, attention_impl="ring",
+                                remat=False), TRAIN_BATCH),
                 ("llama", make_llama_train_step, llama.llama_1b(remat=False),
                  LLAMA_TRAIN_BATCH)):
             world_one[key] = train_run(
@@ -2203,7 +2543,10 @@ def parallel_phase(card: str, profile: bool = False) -> dict:
     all three), then once with remat (remat_against_mesh); [parallel-cp]
     gpt2_124m(attention_impl="ring") at B TRAIN_BATCH, 1 + TRAIN_STEPS
     steps, ring attention on a cp group of one against the plain step
-    (mesh_against_plain); the local
+    (mesh_against_plain); [parallel-moe-cp] gpt2_124m(moe_experts=8,
+    attention_impl="ring") and [parallel-gathered]
+    gpt2_124m(attention_impl="pallas"), each 1 + TRAIN_STEPS steps against
+    the plain step (mesh_against_plain); the local
     pipeline (PIPELINE_STAGES stages, PIPELINE_MICROBATCHES microbatches)
     against the sequential blocks; the multi-card runs where there are
     cards for them. With `profile`, one
@@ -2256,6 +2599,25 @@ def parallel_phase(card: str, profile: bool = False) -> dict:
         launches["parallel-cp"] = run.pop("launches")
         del run
         free_device_memory()
+        # [parallel-moe-cp]: the MoE layer's queue over (batch, cp) and a
+        # ring of one; [parallel-gathered]: "pallas" under a mesh gathers k
+        # and v over a cp group of one; each against the plain step
+        for tag, name, cfg, plain_cfg, key in (
+                ("parallel-moe-cp", "gpt2_124m_moe8",
+                 gpt2.gpt2_124m(moe_experts=MOE_EXPERTS, attention_impl="ring",
+                                remat=False),
+                 gpt2.gpt2_124m(moe_experts=MOE_EXPERTS, remat=False), "gpt2_moe8"),
+                ("parallel-gathered", "gpt2_124m",
+                 gpt2.gpt2_124m(attention_impl="pallas", remat=False),
+                 gpt2.gpt2_124m(remat=False), None)):
+            run = mesh_against_plain(card, tag, name, gpt2, make_gpt2_train_step,
+                                     cfg, TRAIN_BATCH, TRAIN_STEPS, mesh,
+                                     profile=profile, plain_cfg=plain_cfg)
+            launches[tag] = run.pop("launches")
+            if key:
+                world_one[key] = {k: run[k] for k in ("first", "step_ms")}
+            del run
+            free_device_memory()
 
         cfg = gpt2.gpt2_124m()
         pipe = pipeline_and_sequential(
@@ -2354,6 +2716,15 @@ def main() -> int:
     # after the model paths: their step times stay comparable with runs
     # that had no [ring] before them (the mesh step is host-bound)
     ring = ring_phase(card, gen)
+    gathered = gathered_phase(card, gen)
+    # a multi-card gathered plan's rank: the last chunk's offset at its shape
+    for plan in multi_card_plans(torch.cuda.device_count()):
+        if gathered_plan(plan):
+            (_, _, Sc, _), _ = rank_attention_shape(plan)
+            cp = plan["mesh"]["cp"]
+            rows = gathered[f"{plan['config']}_cp{cp}"]["rows"]
+            ring[f"fwd_rank_{plan['name']}"] = rows[f"fwd_q@{(cp - 1) * Sc}"]
+            ring[f"rank_{plan['name']}"] = rows[f"q@{(cp - 1) * Sc}"]
 
     def numbers(row, launches):
         """One path's numbers for a kernel: its launches on that path beside
@@ -2381,6 +2752,22 @@ def main() -> int:
                 "bound_by", "library_ms")} for w in ("past", "diagonal", "future")}}
             for n in ("gpt2_124m", "llama_1b")}
 
+    def gathered_paths(prefix, kernel):
+        """[gathered]'s launches beside its last chunk's case, and the
+        cases at every chunk's offset."""
+        out = {}
+        for n, case in gathered.items():
+            rows = {k[len(prefix) + 2:]: r for k, r in case["rows"].items()
+                    if k.startswith(prefix + "q@")}
+            last = max(rows, key=int)
+            out[f"gathered_{n}"] = {
+                **numbers(rows[last], case["launches"][kernel]),
+                "chunks": {f"q@{off}": {k: rows[off][k] for k in (
+                    "shape", "skv", "q_off", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "library")}
+                    for off in sorted(rows, key=int)}}
+        return out
+
     # top level: GPT-2's training path at its own shape; by_path: each main
     # path at its own shape with its own launches
     fwd_paths = {
@@ -2400,7 +2787,12 @@ def main() -> int:
             bwd["fwd_llama_train"], par["parallel-tp-remat"]["flash_fwd"]),
         "parallel_cp_train": numbers(bwd["fwd_main"],
                                      par["parallel-cp"]["flash_fwd"]),
+        "parallel_moe_cp_train": numbers(bwd["fwd_main"],
+                                         par["parallel-moe-cp"]["flash_fwd"]),
+        "parallel_gathered_train": numbers(bwd["fwd_main"],
+                                           par["parallel-gathered"]["flash_fwd"]),
         **ring_paths("fwd_", "flash_fwd"),
+        **gathered_paths("fwd_", "flash_fwd"),
         **multi_card_paths(bwd, "fwd_", par["multi_card"], "flash_fwd"),
     }
     bwd_paths = {
@@ -2416,7 +2808,12 @@ def main() -> int:
         "parallel_tp_llama_train_remat": numbers(
             bwd["llama_train"], par["parallel-tp-remat"]["flash_bwd"]),
         "parallel_cp_train": numbers(bwd["main"], par["parallel-cp"]["flash_bwd"]),
+        "parallel_moe_cp_train": numbers(bwd["main"],
+                                         par["parallel-moe-cp"]["flash_bwd"]),
+        "parallel_gathered_train": numbers(bwd["main"],
+                                           par["parallel-gathered"]["flash_bwd"]),
         **ring_paths("", "flash_bwd"),
+        **gathered_paths("", "flash_bwd"),
         **multi_card_paths(bwd, "", par["multi_card"], "flash_bwd"),
     }
     log(json.dumps({"kernels": [{

@@ -1,6 +1,6 @@
 """What the port's models share: parameter trees from the JAX package, the
-layer loop over stacked parameters, the remat policies and the plain
-attention path.
+layer loop over stacked parameters, the remat policies and the dispatch of
+causal attention.
 
 A model's parameters are a nested dict of tensors in the JAX package's
 layout, with every block parameter stacked on a leading layer axis.
@@ -9,9 +9,8 @@ layout, with every block parameter stacked on a leading layer axis.
 from __future__ import annotations
 
 import contextlib
-import math
 from functools import partial
-from typing import Any, Callable, Dict, Iterator
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -20,6 +19,9 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from ray_tpu_torch.ops.attention import flash_attention, plain_causal_attention
+from ray_tpu_torch.ops.gathered_attention import gathered_attention
+from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel.mesh import (
     axis_size, current_mesh, sums_of_copies, use_mesh,
 )
@@ -125,36 +127,44 @@ def run_block(block: Callable, remat: Any, *args):
     return checkpoint(block, *args, use_reentrant=False)
 
 
-def uses_ring(impl: str, mesh) -> bool:
-    """Whether a model's attention goes through ring attention over the
-    mesh's cp axis (ops/ring_attention.py): "auto" under a mesh with
-    cp > 1, and "ring" (GPT-2's) under any mesh, a cp group of one
-    included. Raises where the chunks would attend only within themselves:
-    "ring" without a mesh, "pallas" or "xla" under cp > 1 (the reference's
-    GSPMD gathers k and v there; the port does not)."""
-    cp = 1 if mesh is None else axis_size(mesh, ("cp",))
+def attention_path(impl: str, cp: Optional[int]) -> str:
+    """Which path a model's attention (`attention_impl`) takes under a mesh
+    whose cp axis has `cp` ranks (None: no mesh):
+    - "ring": ring attention over the mesh's cp axis
+      (ops/ring_attention.py), for "ring" under any mesh (a cp group of one
+      included) and "auto" under cp > 1; "ring" without a mesh raises;
+    - "gathered": "pallas" and "xla" under any mesh, k and v gathered over
+      cp (ops/gathered_attention.py), as the reference's GSPMD gathers them;
+    - "flash": "auto" and "pallas" without a mesh, "auto" under cp 1;
+    - "plain": "xla" without a mesh."""
     if impl == "ring":
-        if mesh is None:
+        if cp is None:
             raise ValueError(
                 "attention_impl='ring' needs a mesh with a cp axis; call the "
                 "model inside parallel.mesh.use_mesh(mesh) (train_step does)")
-        return True
-    if cp > 1 and impl != "auto":
-        raise ValueError(
-            f"attention_impl={impl!r} under cp={cp} would attend only within "
-            "this rank's chunk of the sequence; use 'auto' or 'ring', which "
-            "run ring attention over the cp axis")
-    return cp > 1
+        return "ring"
+    if cp is None:
+        return "plain" if impl == "xla" else "flash"
+    if impl == "auto":
+        return "ring" if cp > 1 else "flash"
+    return "gathered"
 
 
-def plain_causal_attention(q, k, v):
-    """The JAX models' plain einsum path ("xla"), rounding where it rounds:
-    q, k, v [B, H, S, hd] → [B, H, S, hd]; logits in the input dtype,
-    masked with finfo(dtype).min, softmax in f32."""
-    S = q.shape[2]
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
-    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    return torch.matmul(probs, v)
+def causal_attention(q, k, v, impl: str):
+    """q [B, H, S, hd], k and v [B, KH, S, hd] (H a multiple of KH; under
+    cp, this rank's chunk of the sequence) → [B, H, S, hd], causal, by the
+    path `attention_path` names. Grouped-query kv heads are repeated in
+    place (h0, h0, h1, h1: as `jnp.repeat`) to q's head count before the
+    attention, and after the gather on the gathered path."""
+    mesh = current_mesh()
+    path = attention_path(impl, None if mesh is None else axis_size(mesh, ("cp",)))
+    if path == "gathered":
+        return gathered_attention(q, k, v, mesh, impl=impl)
+    groups = q.shape[1] // k.shape[1]
+    if groups > 1:
+        k, v = (x.repeat_interleave(groups, dim=1) for x in (k, v))
+    if path == "ring":
+        return ring_attention(q, k, v, mesh, causal=True)
+    if path == "flash":
+        return flash_attention(q, k, v, causal=True, layout="bhsd")
+    return plain_causal_attention(q, k, v)

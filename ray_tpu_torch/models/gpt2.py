@@ -12,8 +12,11 @@ Attention (`attention_impl`):
   finfo(dtype).min, f32 softmax);
 - "ring": ops.ring_attention.ring_attention over the mesh's cp process
   group, which "auto" also takes under a mesh with cp > 1; "ring" needs a
-  mesh (a cp group of one runs the ring of one chunk), and "pallas" and
-  "xla" are refused under cp > 1 (models.common.uses_ring).
+  mesh (a cp group of one runs the ring of one chunk);
+- under a mesh, "pallas" and "xla" gather k and v over the cp group and
+  attend from this rank's chunk of the queries
+  (ops.gathered_attention, as the reference's GSPMD does), through the
+  flash kernels or the plain path (models.common.attention_path).
 
 Training: `loss_fn` is the mean next-token cross-entropy, through the
 fused `ops.cross_entropy.softmax_xent` or, with `loss_chunk`, chunk by
@@ -42,8 +45,10 @@ the sum; the embedding, the tied head and the loss are vocab-parallel, so
 under a mesh `forward` returns this rank's logits [B, S, V/tp]
 (parallel.tensor.gather_vocab puts them together). Over cp a rank holds
 a contiguous S/cp chunk of every sequence: its position embedding is
-wpe[off : off + S/cp] (off = cp_index · S/cp) and attention runs as a
-ring over the cp group.
+wpe[off : off + S/cp] (off = cp_index · S/cp), taken before a pipeline's
+first stage, and attention runs as a ring over the cp group (or gathers k
+and v, above), inside each pipeline stage too: a stage's cp ranks run
+the same ticks, so their exchanges pair up.
 
 `scan_layers` and the `attn_*block*` fields are kept for parity and have
 no effect here: the forward runs eagerly, layer by layer, and the kernels'
@@ -61,15 +66,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.models.common import (  # params_from_jax: a JAX tree → torch
-    ParamsModule, layers, params_from_jax, plain_causal_attention, round_up,
-    run_block, uses_ring,
+    ParamsModule, causal_attention, layers, params_from_jax, round_up,
+    run_block,
 )
-from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.cross_entropy import vocab_parallel_xent
 from ray_tpu_torch.ops.moe import (
     moe_init, moe_logical_axes, moe_mlp, moe_param_shapes,
 )
-from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel.mesh import axis_size, current_mesh, seq_offset
 from ray_tpu_torch.parallel.pipeline import pipeline_apply, stages_from_layers
 from ray_tpu_torch.parallel.tensor import (
@@ -294,13 +297,8 @@ def _layernorm(x, scale, bias, eps=1e-5):
 
 def _attention(q, k, v, cfg: GPT2Config):
     """q, k, v: [B, H, S, hd] → [B, H, S, hd], causal (under cp, this
-    rank's chunk of the sequence)."""
-    impl, mesh = cfg.attention_impl, current_mesh()
-    if uses_ring(impl, mesh):
-        return ring_attention(q, k, v, mesh, causal=True)
-    if impl in ("auto", "pallas"):
-        return flash_attention(q, k, v, causal=True, layout="bhsd")
-    return plain_causal_attention(q, k, v)
+    rank's chunk of the sequence; models.common.attention_path)."""
+    return causal_attention(q, k, v, cfg.attention_impl)
 
 
 def _block(x, p: Dict[str, Any], cfg: GPT2Config):

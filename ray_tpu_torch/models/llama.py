@@ -29,7 +29,13 @@ the embedding, the head and the loss are vocab-parallel, so under a mesh
 contiguous S/cp chunk of every sequence: RoPE's positions start at its
 global offset (cp_index · S/cp), and "auto" runs attention as a ring over
 the cp group (ops/ring_attention.py) on the kv heads repeated to H;
-"pallas" and "xla" are refused under cp > 1 (models.common.uses_ring).
+under a mesh "pallas" and "xla" gather k and v over the cp group at KH
+heads, repeat them to H only then, and attend from this rank's chunk of
+the queries (ops/gathered_attention.py), as the reference's GSPMD gathers
+them. Over pp the model runs no pipeline, as the reference's does not
+(its rule table leaves the layer stack unsharded): every pp rank holds
+every layer and the same rows, and the train step treats pp as a replica
+axis.
 
 `params_from_hf` maps a transformers `LlamaForCausalLM` that the caller
 built or loaded; this module never imports transformers.
@@ -45,12 +51,10 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models.common import (  # params_from_jax: a JAX tree → torch
-    ParamsModule, layers, params_from_jax, plain_causal_attention, round_up,
-    run_block, uses_ring,
+    ParamsModule, causal_attention, layers, params_from_jax, round_up,
+    run_block,
 )
-from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.cross_entropy import vocab_parallel_xent
-from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel.mesh import current_mesh, seq_offset
 from ray_tpu_torch.parallel.tensor import (
     column_in, row_out, vocab_parallel_embed, vocab_parallel_logits,
@@ -236,17 +240,10 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
 
 def _attention(q, k, v, cfg: LlamaConfig):
     """q [B, H, S, hd], k and v [B, KH, S, hd] → [B, H, S, hd], causal
-    (under cp, this rank's chunk of the sequence)."""
-    groups = cfg.n_head // cfg.n_kv_head
-    if groups > 1:
-        k = k.repeat_interleave(groups, dim=1)
-        v = v.repeat_interleave(groups, dim=1)
-    mesh = current_mesh()
-    if uses_ring(cfg.attention_impl, mesh):
-        return ring_attention(q, k, v, mesh, causal=True)
-    if cfg.attention_impl in ("auto", "pallas"):
-        return flash_attention(q, k, v, causal=True, layout="bhsd")
-    return plain_causal_attention(q, k, v)
+    (under cp, this rank's chunk of the sequence; the kv heads repeated to
+    H, after the gather on the gathered path: models.common.
+    causal_attention)."""
+    return causal_attention(q, k, v, cfg.attention_impl)
 
 
 def _heads(h, w, dt):

@@ -8,6 +8,8 @@ plain PyTorch. `_mha_forward_bhsd` and `_mha_backward_bhsd` send a CPU
 tensor to the plain version and a CUDA tensor to the kernel, which raises
 on what it does not take (anything but contiguous bf16 at hd 64 or 128):
 there is no fallback from the card to the plain version.
+`plain_causal_attention` is the JAX models' plain einsum path ("xla"),
+which the models and the gathered path (ops/gathered_attention.py) run.
 
 Numerics follow the TPU kernels: the softmax scale is folded into q (and,
 for dq, into k) in the input dtype, logits and the softmax state are f32,
@@ -282,24 +284,26 @@ def _mha_backward_bhsd(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """[B, H, S, hd] flash attention with zero offsets. Saves (q, k, v, o,
-    lse); its backward is the backward kernel on the card and the plain
-    backward on the CPU."""
+    """[B, H, S, hd] flash attention, the queries at GLOBAL offset q_offset
+    and the keys at 0 (Sq may differ from Skv). Saves (q, k, v, o, lse);
+    its backward is the backward kernel on the card and the plain backward
+    on the CPU, at the same offsets."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        o, lse = _mha_forward_bhsd(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, causal: bool, scale: float, q_offset: int = 0):
+        o, lse = _mha_forward_bhsd(q, k, v, q_offset, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.q_offset = causal, scale, q_offset
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _mha_backward_bhsd(
-            q, k, v, o, lse, do.contiguous(), causal=ctx.causal, scale=ctx.scale
+            q, k, v, o, lse, do.contiguous(), ctx.q_offset, causal=ctx.causal,
+            scale=ctx.scale,
         )
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def _to_bhsd(x: torch.Tensor) -> torch.Tensor:
@@ -326,6 +330,22 @@ def flash_attention(
     )
     o = _FlashAttention.apply(q, k, v, causal, _default_scale(q, scale))
     return o if bhsd else _to_bhsd(o)
+
+
+def plain_causal_attention(q, k, v, q_offset: int = 0):
+    """The JAX models' plain einsum path ("xla"), rounding where it rounds:
+    q [B, H, Sq, hd] at GLOBAL positions q_offset.., k and v
+    [B, H, Skv, hd] at 0.. → [B, H, Sq, hd]; logits in the input dtype,
+    masked with finfo(dtype).min, softmax in f32. Differentiable by
+    autograd."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    rows = int(q_offset) + torch.arange(Sq, device=q.device)[:, None]
+    mask = rows >= torch.arange(Skv, device=q.device)[None, :]
+    logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
 
 
 def flash_attention_with_lse(

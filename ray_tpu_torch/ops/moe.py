@@ -35,12 +35,15 @@ plain batched matrix products (torch.bmm here, as XLA's dots there).
 
 Under a device mesh (parallel/mesh.py's `current_mesh`, which the train
 step enters) the layer still computes the reference's function of the
-GLOBAL batch, whose rows are split over (dp, fsdp):
+GLOBAL batch, whose rows are split over (dp, fsdp) and whose sequences are
+split over cp (TOKEN_AXES):
 - the capacity counts every rank's tokens, and each choice's place in its
-  expert's queue counts the choices of the ranks before it in the global
-  k-major order (an all-gather of [k, E] counts over the batch axes);
+  expert's queue counts the choices before it in the global k-major order
+  over the flattened (batch, sequence) token axis, where a rank's tokens
+  are not contiguous under cp (its chunk of each of its rows): an
+  all-gather of [k, rows, E] counts over TOKEN_AXES (`_global_queue`);
 - the load-balancing loss is E · Σ_e (global top-1 share) · (global mean
-  probability): a product of global means;
+  probability): a product of means over TOKEN_AXES;
 - with ep > 1 a rank holds E/ep experts (`moe_logical_axes` puts the
   expert dim on ep). The ranks of an ep group hold the same tokens, so
   each runs its experts on its dispatch slots and the combined outputs are
@@ -69,8 +72,8 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.parallel.mesh import (
-    BATCH_AXES, all_gather, all_reduce, axis_index, axis_size, copy_over,
-    current_mesh, sum_over,
+    BATCH_AXES, TOKEN_AXES, all_gather, all_reduce, axis_index, axis_size,
+    copy_over, current_mesh, sum_over,
 )
 from ray_tpu_torch.parallel.tensor import row_out
 
@@ -184,30 +187,65 @@ def _aux_loss(probs: torch.Tensor, first_choice: torch.Tensor) -> torch.Tensor:
     return E * (top1.mean(0) * probs.mean(0)).sum()
 
 
-def _global_queue(r: Routing, capacity: int, mesh) -> Routing:
-    """`r`, a routing of this rank's tokens with places counted among them,
-    with each place moved behind the choices of the same expert that come
-    earlier in the global k-major order: all choices j' < j of every rank,
-    and choice j of the ranks before this one on the batch axes."""
-    k, E = r.expert.shape[1], r.probs.shape[-1]
-    counts = torch.zeros(k, E, dtype=torch.long, device=r.expert.device)
-    counts.scatter_add_(1, r.expert.t(), torch.ones_like(r.expert.t()))
-    every = all_gather(counts, mesh, BATCH_AXES)              # [ranks, k, E]
-    others = every.sum(0) - counts
-    offset = (every[:axis_index(mesh, BATCH_AXES)].sum(0)
-              + others.cumsum(0) - others)                    # [k, E]
-    pos = r.pos + offset.gather(1, r.expert.t()).t()
+def _choice_counts(r: Routing, rows: int) -> torch.Tensor:
+    """[k, rows, E]: how many of choice j of each row's tokens go to each
+    expert, for a routing of `rows` rows' tokens in row order."""
+    T, k = r.expert.shape
+    idx = r.expert.t().reshape(k, rows, T // rows)
+    counts = torch.zeros(k, rows, r.probs.shape[-1], dtype=torch.long,
+                         device=idx.device)
+    return counts.scatter_add_(2, idx, torch.ones_like(idx))
+
+
+def _queue(r: Routing, capacity: int, every: torch.Tensor, b: int,
+           c: int) -> Routing:
+    """`r`, the routing of the tokens of batch rank b's rows in sequence
+    chunk c, with places counted among them (`route`), with each place
+    moved to the token's place in the global k-major order over the
+    flattened (batch, sequence) token axis: behind every rank's choices
+    j' < j of the same expert, then behind its choices j in the rows of
+    the batch ranks before b (all their chunks), in b's earlier rows (all
+    their chunks: other ranks hold the other chunks of a row), and in the
+    earlier chunks of its own row. every: [batch ranks, cp, k, rows, E],
+    each rank's `_choice_counts`."""
+    T, k = r.expert.shape
+    _, _, _, rows, E = every.shape
+    counts = every[b, c]
+
+    def before(x, dim):     # Σ of the entries before each along dim
+        return x.cumsum(dim) - x
+
+    row = every[b].sum(0)                                       # [k, rows, E]
+    place = (before(every.sum((0, 1, 3)), 0) + every[:b].sum((0, 1, 3)))[:, None] \
+        + before(row, 1) + every[b, :c].sum(0)                 # [k, rows, E]
+    # route() counted this rank's choices j' < j, then its earlier rows'
+    offset = place - before(counts.sum(1), 0)[:, None] - before(counts, 1)
+    at = ((torch.arange(T, device=r.expert.device) // (T // rows))[:, None] * E
+          + r.expert)
+    pos = r.pos + offset.view(k, rows * E).gather(1, at.t()).t()
     return Routing(r.probs, r.gate, r.expert, pos, pos < capacity)
+
+
+def _global_queue(r: Routing, capacity: int, rows: int, mesh) -> Routing:
+    """`_queue` over the mesh: this rank's routing of its `rows` rows (its
+    chunk of each), the counts of every rank all-gathered over
+    TOKEN_AXES."""
+    counts = _choice_counts(r, rows)
+    every = all_gather(counts, mesh, TOKEN_AXES).view(
+        axis_size(mesh, BATCH_AXES), axis_size(mesh, ("cp",)), *counts.shape)
+    return _queue(r, capacity, every, axis_index(mesh, BATCH_AXES),
+                  mesh.get_local_rank("cp"))
 
 
 def _global_aux_loss(probs: torch.Tensor, first_choice: torch.Tensor,
                      num_tokens: int, mesh) -> torch.Tensor:
     """`_aux_loss` over the global batch: each factor is a mean over every
-    rank's tokens, the probabilities' differentiably (sum_over)."""
+    rank's tokens (TOKEN_AXES), the probabilities' differentiably
+    (sum_over)."""
     E = probs.shape[-1]
     top1 = (first_choice[:, None] == torch.arange(E, device=probs.device)).float()
-    frac_tokens = all_reduce(top1.sum(0), mesh, BATCH_AXES) / num_tokens
-    frac_probs = sum_over(probs.sum(0), mesh, BATCH_AXES) / num_tokens
+    frac_tokens = all_reduce(top1.sum(0), mesh, TOKEN_AXES) / num_tokens
+    frac_probs = sum_over(probs.sum(0), mesh, TOKEN_AXES) / num_tokens
     return E * (frac_tokens * frac_probs).sum()
 
 
@@ -223,14 +261,14 @@ def moe_mlp(x: torch.Tensor, params: Dict[str, Any], *, top_k: int,
     T = B * S
     E = params["router_w"].shape[-1]
     mesh = current_mesh()
-    tokens = T if mesh is None else T * axis_size(mesh, BATCH_AXES)
+    tokens = T if mesh is None else T * axis_size(mesh, TOKEN_AXES)
     C = moe_capacity(tokens, E, top_k, capacity_factor)
     xt = x.reshape(T, D)
     r = route(xt, params["router_w"], top_k, C)
     local_pos = r.pos                  # place among this rank's tokens
     E_here, slots, first, gate = E, C, 0, r.gate
     if mesh is not None:
-        r = _global_queue(r, C, mesh)
+        r = _global_queue(r, C, B, mesh)
         E_here, slots = params["fc_w"].shape[0], min(C, T)
         first = mesh.get_local_rank("ep") * E_here
         # each ep rank uses these for its own experts' share of y, each tp

@@ -14,7 +14,8 @@ process group of that mesh dimension.
         holds H/tp heads, F/tp MLP columns and V/tp vocabulary rows
   cp    context parallelism: each rank holds a contiguous S/cp slice of
         the sequence, and attention runs as a ring over the cp group
-        (ops/ring_attention.py)
+        (ops/ring_attention.py) or gathers k and v over it
+        (ops/gathered_attention.py)
   ep    expert parallelism: each rank holds E/ep experts of every MoE layer
 
 A global batch is split over (dp, fsdp) in mesh order, its sequence over
@@ -44,6 +45,10 @@ AXIS_ORDER: Tuple[str, ...] = ("dp", "pp", "fsdp", "ep", "cp", "tp")
 
 # Axes over which a global batch is split.
 BATCH_AXES: Tuple[str, ...] = ("dp", "fsdp")
+# Axes over which the global (batch, sequence) tokens are split: a rank's
+# place in their order is axis_index(mesh, TOKEN_AXES) = batch index · cp +
+# cp index (its rows, then its chunk of each of them).
+TOKEN_AXES: Tuple[str, ...] = BATCH_AXES + ("cp",)
 
 
 @dataclass(frozen=True)

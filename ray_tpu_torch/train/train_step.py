@@ -18,11 +18,13 @@ by the global count of targets, then
 sums each gradient over the ranks whose contributions are disjoint: the
 batch axes (reduce-scattered back to the shard where they shard it), cp
 (each rank's chunk of the sequence; ring attention hands each rank the
-gradient of its own k and v) and, for a parameter every pipeline stage
-holds, pp (the first stage's embedding plus the last stage's head); the
-count of targets and the loss are summed over the batch axes and cp too.
-Never over ep or tp: the ranks of an ep or tp group hold the same block
-and compute the same loss; the MoE
+gradient of its own k and v, the gathered attention the sum of every
+rank's share of it) and, in a pipelined plan, pp for a parameter every
+stage holds (the first stage's embedding plus the last stage's head); the
+count of targets and the loss are summed over the batch axes and cp too,
+and the loss over a pipeline's pp. Never over ep or tp, nor over pp where
+the plan is not pipelined (Llama's, as the reference's): the ranks of
+such a group hold the same block and compute the same loss; the MoE
 layer's and the tensor-parallel products' collectives (parallel/tensor.py)
 hand each rank the whole gradient of what it holds, its shard of a leaf
 split over tp or ep, or the whole of a leaf it holds whole. The clipping
@@ -42,7 +44,6 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models import gpt2, llama
-from ray_tpu_torch.models.common import uses_ring
 from ray_tpu_torch.parallel.mesh import (
     AXIS_ORDER, BATCH_AXES, all_reduce, broadcast, local_batch, mesh_spec,
     reduce_scatter_dims, use_mesh,
@@ -262,27 +263,16 @@ def _make_train_step(model, cfg, optimizer, generator, device, mesh=None,
 
 
 def _mesh_rules(model, cfg, mesh, rules):
-    """The reference's checks of a mesh plan (ray_tpu/train/train_step.py),
-    the widths tp and cp must divide, and the refusal of what is not ported
-    yet; returns the rules, with the layer stack on pp for a pipelined
-    plan."""
+    """The reference's checks of a mesh plan (ray_tpu/train/train_step.py)
+    and the widths tp and cp must divide; returns the rules, with the
+    layer stack on pp for a pipelined plan (GPT-2 over pp > 1; Llama runs
+    no pipeline, as the reference's does not, and pp is a replica axis
+    there)."""
     spec = mesh_spec(mesh)
-    if spec.cp > 1:
-        if cfg.seq_len % spec.cp:
-            raise ValueError(
-                f"sequence length {cfg.seq_len} not divisible by cp axis "
-                f"size {spec.cp}; pad the sequence or change the mesh")
-        if getattr(cfg, "moe_experts", 0) > 0:
-            raise NotImplementedError(
-                "MoE with cp > 1 is not ported yet: the global expert queue "
-                "(ops/moe.py) orders the tokens by batch rank, and a "
-                "sequence split over cp breaks that order")
-        if spec.pp > 1:
-            raise NotImplementedError(
-                "pipeline parallelism with cp > 1 (pp·cp) is not ported "
-                "yet: the GPipe schedule runs no ring attention")
-    uses_ring(cfg.attention_impl, mesh)   # raises where the chunks would
-                                          # attend only within themselves
+    if cfg.seq_len % spec.cp:
+        raise ValueError(
+            f"sequence length {cfg.seq_len} not divisible by cp axis "
+            f"size {spec.cp}; pad the sequence or change the mesh")
     widths = {"n_head": cfg.n_head, "d_ff": cfg.d_ff,
               "padded_vocab": cfg.padded_vocab}
     if model is llama:
@@ -291,10 +281,7 @@ def _mesh_rules(model, cfg, mesh, rules):
         if n % spec.tp:
             raise ValueError(f"{name}={n} not divisible by tp={spec.tp}: "
                              "tensor parallelism splits it over the tp axis")
-    if spec.pp > 1:
-        if model is not gpt2:
-            raise NotImplementedError(
-                "pipeline parallelism is ported for GPT-2 only")
+    if spec.pp > 1 and model is gpt2:
         if cfg.moe_experts > 0:
             raise NotImplementedError(
                 "pipeline parallelism with MoE blocks is not supported yet; "
@@ -314,24 +301,35 @@ class _LeafPlan(NamedTuple):
     # gathered over them for the step, its gradient reduce-scattered back
     gather: List[Tuple[str, int]]
     summed: Tuple[str, ...]     # the other axes its gradient is summed over
-    # ep and tp, where it is replicated: every rank of the group computes
-    # the same gradient, but kernels that accumulate in a run-dependent
-    # order (the embedding's backward) may round it differently, so the
-    # first rank's is handed to the others and the replicas never drift
-    # apart
+    # ep, tp and (unpipelined) pp, where it is replicated: every rank of
+    # the group computes the same gradient, but kernels that accumulate in
+    # a run-dependent order (the embedding's backward) may round it
+    # differently, so the first rank's is handed to the others and the
+    # replicas never drift apart
     copied: Tuple[str, ...]
     sharded: Tuple[str, ...]    # every axis that shards it (for the norm)
 
 
-def _leaf_plan(placements) -> _LeafPlan:
+def _disjoint_axes(pipelined: bool) -> Tuple[str, ...]:
+    """The axes whose ranks hold disjoint shares of the step's work, over
+    which the loss and the gradients are summed: the batch axes, cp, and pp
+    only in a pipelined plan, where its ranks hold disjoint stages (a leaf
+    every stage holds gets the first stage's embedding gradient plus the
+    last stage's head's, the loss is the last stage's plus the others' 0);
+    elsewhere pp is a replica axis, as ep and tp are."""
+    return BATCH_AXES + (("pp",) if pipelined else ()) + ("cp",)
+
+
+def _leaf_plan(placements, pipelined: bool) -> _LeafPlan:
     from torch.distributed.tensor import Shard
 
     shard = {a: p.dim for a, p in zip(AXIS_ORDER, placements)
              if isinstance(p, Shard)}
+    replica = ("ep", "tp") + (() if pipelined else ("pp",))
     return _LeafPlan(
         gather=batch_gather_dims(placements),
-        summed=tuple(a for a in BATCH_AXES + ("pp", "cp") if a not in shard),
-        copied=tuple(a for a in ("ep", "tp") if a not in shard),
+        summed=tuple(a for a in _disjoint_axes(pipelined) if a not in shard),
+        copied=tuple(a for a in AXIS_ORDER if a in replica and a not in shard),
         sharded=tuple(shard))
 
 
@@ -349,6 +347,7 @@ def _grad_norm(grads, plans, mesh) -> torch.Tensor:
 def _make_mesh_train_step(model, cfg, optimizer, generator, device, mesh,
                           rules) -> TrainStepBundle:
     rules = _mesh_rules(model, cfg, mesh, rules)
+    pipelined = (rules or {}).get("layers") == "pp"
     device = torch.device(device)
     if optimizer is None:
         optimizer = default_optimizer()
@@ -362,7 +361,7 @@ def _make_mesh_train_step(model, cfg, optimizer, generator, device, mesh,
         shards = [d.to_local() for d in param_leaves(params)]
     for p in shards:
         p.requires_grad_(True)
-    plans = [_leaf_plan(d.placements) for d in param_leaves(params)]
+    plans = [_leaf_plan(d.placements, pipelined) for d in param_leaves(params)]
     state = {"params": params, "opt_state": optimizer(shards), "step": 0}
 
     def step_fn(state, batch):
@@ -389,7 +388,7 @@ def _make_mesh_train_step(model, cfg, optimizer, generator, device, mesh,
         opt.step(grad_norm=norm)
         state["step"] += 1
         total = all_reduce(total.detach().clone(), mesh,
-                           BATCH_AXES + ("pp", "cp"))
+                           _disjoint_axes(pipelined))
         aux = aux_term.detach() if torch.is_tensor(aux_term) else aux_term
         return state, {"loss": total / count + aux, "grad_norm": norm}
 

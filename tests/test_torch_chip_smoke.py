@@ -341,8 +341,9 @@ def test_remat_against_mesh_over_gloo(smoke, world_one, monkeypatch):
 
 def test_rank_attention_shape_of_each_multi_card_plan(smoke):
     """The flash kernels' shape on one rank of each multi-card plan: the
-    batch over dp·fsdp, the heads and kv heads over tp, the sequence over
-    cp (a ring chunk); no plan on one card."""
+    batch over dp·fsdp (and a pipeline's microbatches), the heads and kv
+    heads over tp, the sequence over cp (a ring chunk, or on the gathered
+    path the queries' chunk); no plan on one card."""
     assert smoke.multi_card_plans(1) == []
     shapes = {p["name"]: smoke.rank_attention_shape(p)
               for count in (2, 4) for p in smoke.multi_card_plans(count)}
@@ -355,6 +356,12 @@ def test_rank_attention_shape_of_each_multi_card_plan(smoke):
         "gpt2_124m_cp4": ((24, 12, 256, 64), 12),
         "gpt2_124m_fsdp2tp2": ((12, 6, 1024, 64), 6),
         "llama_1b_cp2tp2": ((8, 16, 1024, 64), 4),
+        "gpt2_124m_moe8_cp2": ((24, 12, 512, 64), 12),
+        "gpt2_124m_moe8_fsdp2cp2": ((12, 12, 512, 64), 12),
+        "gpt2_124m_pallas_cp2": ((24, 12, 512, 64), 12),
+        # 4 microbatches of the 24 rows
+        "gpt2_124m_pp2cp2": ((6, 12, 512, 64), 12),
+        "llama_1b_pp2tp2": ((8, 16, 2048, 64), 4),
     }
     # the cp plans' meshes hold as many ranks as the cards
     for count in (2, 4):
@@ -495,3 +502,123 @@ def test_multi_card_cp_ranks_over_gloo(smoke, capfd):
         2 * 3 + 16 + 2) == (1 + smoke.TRAIN_STEPS) * smoke.cp_collectives_per_step(gpt2, cfg, 2)
     smoke.hold_to_world_one("card", {**plan, "name": "test_cp2", "mesh": {"cp": 2}},
                             two, one[0], device="cpu")
+
+
+def test_cp_collectives_formula_of_the_new_paths(smoke):
+    """cp_collectives_per_step on the gathered path (an all-gather and a
+    reduce-scatter a layer, a group of one included), with MoE blocks (the
+    queue's all-gather and the aux loss's two sums a layer) and in a
+    GPT-2 pipeline (a rank's L/pp layers for each microbatch); the
+    launches a rank makes a step by launches_per_step."""
+    from ray_tpu_torch.models import gpt2, llama
+
+    pallas = gpt2.gpt2_124m(attention_impl="pallas")
+    assert smoke.cp_collectives_per_step(gpt2, pallas, 1) == 12 * 2 + 16 + 2
+    assert smoke.cp_collectives_per_step(gpt2, replace(pallas, remat=True), 2) == 12 * 3 + 18
+    assert smoke.cp_collectives_per_step(
+        llama, llama.llama_1b(attention_impl="xla"), 2) == 22 * 2 + 12 + 2
+    moe = gpt2.gpt2_124m(moe_experts=8)
+    assert smoke.cp_collectives_per_step(gpt2, moe, 1) == 12 * 3 + 17 + 2
+    assert smoke.cp_collectives_per_step(gpt2, moe, 2) == 12 * (1 + 2 + 3) + 17 + 2
+    pipe = gpt2.gpt2_124m(pipeline_microbatches=4)
+    assert smoke.cp_collectives_per_step(gpt2, pipe, 2, pp=2) == 6 * 4 * 3 + 16 + 2
+    # Llama runs no pipeline: every layer on every pp rank
+    assert smoke.cp_collectives_per_step(llama, llama.llama_1b(), 1, pp=2) == 12 + 2
+    assert smoke.launches_per_step(gpt2, pipe, 2, 1, pp=2) == 6 * 4 * 2
+    assert smoke.launches_per_step(gpt2, pallas, 4, 3) == 12
+    assert smoke.launches_per_step(llama, llama.llama_1b(attention_impl="xla"), 2, 1) == 0
+    assert smoke.launches_per_step(llama, llama.llama_1b(), 1, 0, pp=2) == 22
+
+
+@pytest.mark.parametrize("cp", [1, 2, 4])
+def test_gathered_launches_formula_counts_the_calls(smoke, monkeypatch, cp):
+    """gathered_launches against the kernel calls a virtual gathered
+    attention of cp chunks makes on the CPU (the wrappers are counted here
+    in their place); gathered_schedule's calls made directly give the
+    autograd path's output and gradients, bitwise, on the plain versions
+    (the [gathered] phase holds the kernels' to them on the card)."""
+    from ray_tpu_torch.ops import attention as A
+
+    calls = []
+    for name in ("_mha_forward_bhsd", "_mha_backward_bhsd"):
+        fn = getattr(A, name)
+        monkeypatch.setattr(A, name, lambda *a, fn=fn, name=name, **kw: (
+            calls.append(name), fn(*a, **kw))[1])
+    g = torch.Generator().manual_seed(0)
+    q, do = (torch.randn(2, 4, 32, 16, generator=g) for _ in range(2))
+    k, v = (torch.randn(2, 2, 32, 16, generator=g) for _ in range(2))
+    o, grads = smoke.gathered_run(q, k, v, do, cp)
+    want = smoke.gathered_launches(cp)
+    assert calls.count("_mha_forward_bhsd") == calls.count("_mha_backward_bhsd") == want
+    fwd, grads_s = smoke.gathered_schedule(q, k, v, do, cp, plain=True)
+    assert torch.equal(torch.cat([o_c for o_c, _ in fwd], 2), o)
+    for a, b in zip(grads, grads_s):
+        assert torch.equal(a, b)
+    assert grads[1].shape == k.shape
+
+
+def test_parallel_gathered_and_moe_cp_phases_on_the_cpu(smoke, world_one, capsys):
+    """mesh_against_plain, the [parallel-gathered] and [parallel-moe-cp]
+    phases' function, at gpt2_tiny (f32) over a one-rank gloo mesh:
+    "pallas" through the gathered path and the MoE blocks on a ring of
+    one, each held to the plain step; no kernel launched on the CPU; the
+    collectives over cp the formula's (2 a layer on the gathered path,
+    the MoE's 3 a layer)."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train.train_step import make_gpt2_train_step
+
+    for cfg, plain, per_step in (
+            (gpt2.gpt2_tiny(dtype=torch.float32, attention_impl="pallas"),
+             gpt2.gpt2_tiny(dtype=torch.float32), 2 * 2 + 16 + 2),
+            (gpt2.gpt2_tiny(dtype=torch.float32, attention_impl="ring",
+                            moe_experts=4),
+             gpt2.gpt2_tiny(dtype=torch.float32, moe_experts=4), 2 * 3 + 17 + 2)):
+        run = smoke.mesh_against_plain("card", "parallel-gathered", "gpt2_tiny",
+                                       gpt2, make_gpt2_train_step, cfg, 2, 2,
+                                       world_one, device="cpu", plain_cfg=plain)
+        assert run["launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+        assert run["collectives"]["cp"] == 3 * per_step
+        assert (f"collectives over cp: {3 * per_step} in 3 steps (the formula: "
+                f"{3 * per_step})") in capsys.readouterr().out
+
+
+def test_multi_card_gathered_and_moe_cp_ranks_over_gloo(smoke):
+    """Two of the new multi-card plans' processes over gloo on the CPU, at
+    gpt2_tiny: its MoE over cp 2 (the queue over (batch, cp)) held to its
+    MoE at world 1 (the plan's "reference"), and "pallas" over cp 2 (the
+    gathered path) held to the model at world 1, by hold_to_world_one:
+    the same first loss on both ranks, near world 1's, the collectives
+    over cp and tp of the formulas."""
+    plan = dict(model="gpt2", config="gpt2_tiny", batch=2)
+    moe = {"moe_experts": 4}
+    one = smoke.run_ranks({**plan, "name": "test_w1", "mesh": {}}, 1,
+                          backend="gloo", device="cpu")
+    one_moe = smoke.run_ranks({**plan, "name": "test_moe_w1", "mesh": {},
+                               "overrides": moe}, 1, backend="gloo", device="cpu")
+    for p, ref in (({**plan, "name": "test_moe_cp2", "mesh": {"cp": 2},
+                     "overrides": moe, "reference": "gpt2_moe8"}, one_moe[0]),
+                   ({**plan, "name": "test_pallas_cp2", "mesh": {"cp": 2},
+                     "overrides": {"attention_impl": "pallas"}}, one[0])):
+        two = smoke.run_ranks(p, 2, backend="gloo", device="cpu")
+        assert two[0]["first"]["loss"] == two[1]["first"]["loss"]
+        smoke.hold_to_world_one("card", p, two, ref, device="cpu")
+
+
+def test_bounds_count_only_the_kv_rows_a_call_needs(smoke):
+    """Under a causal mask a call needs the kv rows up to its last query's
+    position: the gathered path's first chunk reads a quarter of k and v
+    at cp 4, a ring's future chunk none; the backward still writes dk and
+    dv over every kv row."""
+    assert smoke.kv_rows_needed(256, 1024, 0, 0, True) == 256
+    assert smoke.kv_rows_needed(256, 1024, 768, 0, True) == 1024
+    assert smoke.kv_rows_needed(256, 256, 0, 256, True) == 0
+    assert smoke.kv_rows_needed(256, 1024, 0, 0, False) == 1024
+    q = torch.empty(24, 12, 256, 64, device="meta")
+    k = torch.empty(24, 12, 1024, 64, device="meta")
+    _, _, fwd_bytes, _ = smoke.attention_bound(q, k, 0, 0, True)
+    assert fwd_bytes == 2 * 24 * 12 * (2 * 256 + 2 * 256) * 64 + 4 * 24 * 12 * 256
+    _, _, bwd_bytes, _ = smoke.attention_bwd_bound(q, k, 0, 0, True)
+    assert bwd_bytes == 2 * 24 * 12 * (4 * 256 + 2 * 256 + 2 * 1024) * 64 + 4 * 24 * 12 * 256
+    # the whole sequence: every row read, as before
+    _, _, whole, _ = smoke.attention_bound(k, k, 0, 0, True)
+    assert whole == 2 * 24 * 12 * 4 * 1024 * 64 + 4 * 24 * 12 * 1024

@@ -280,14 +280,9 @@ def test_gpt2_dp2_pp2_matches_jax(pp_runs):
 
 @pytest.mark.parametrize("case,error,match", [
     ("moe_with_pp", "NotImplementedError", "pipeline"),
-    ("llama_with_pp", "NotImplementedError", "pipeline"),
     ("n_layer_not_divisible", "ValueError", "not divisible"),
     ("batch_not_divisible_by_microbatches", "ValueError", "not divisible"),
     ("tp_not_dividing_kv_heads", "ValueError", "not divisible"),
-    ("moe_with_cp", "NotImplementedError", "MoE with cp > 1"),
-    ("pp_with_cp", "NotImplementedError", "pp·cp"),
-    ("pallas_with_cp", "ValueError", "use 'auto' or 'ring'"),
-    ("xla_with_cp", "ValueError", "use 'auto' or 'ring'"),
     ("seq_len_not_divisible_by_cp", "ValueError",
      "sequence length 126 not divisible by cp axis size 4"),
     ("batch_seq_not_divisible_by_cp", "ValueError",
