@@ -143,7 +143,34 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    [B, H, S/cp, hd] at offset r·S/cp against k and v [B, H, S, hd], beside
    SDPA with an explicit boolean mask (is_causal aligns top-left), on the
    first backend that takes it (named in the row).
-14. Print the kernels line (each kernel's numbers by model path), the card's
+14. [rllib-ppo]: RLlib (ray_tpu_torch/rllib) through the reference's entry
+   point, PPOConfig()...build().train(), rollouts on the host CPU and the
+   learner on the card: BASELINE config 2 at the reference's settings
+   (CartPole-v1, 16 envs, fragments of 256, train batch 4000, minibatch
+   128, 10 epochs, lr 3e-4, seed 0) until episode_reward_mean >= 150 over
+   >= 20 episodes, fatal past 100k env steps. The learner's parameters and
+   Adam moments must be CUDA tensors, the runner's policy CPU tensors.
+   Per iteration: sample seconds, update seconds (synchronized),
+   minibatch steps/s, env-steps/s overall, peak device memory. With
+   --profile, one more update's device time by kernel and the device's
+   busy share.
+15. [rllib-impala]: IMPALAConfig()...build().train() (the reference's
+   synchronous path) to the reference's CartPole target (best
+   episode_reward_mean >= 150 within 40 iterations of 8 updates of 16 x 64
+   steps), then 3 iterations on Pong-v0 at the same shape: env-steps/s,
+   update ms and sample ms, inline in one process (BASELINE config 4's
+   asynchronous actors are not ported, so not comparable with it).
+16. [rllib-ma]: one train() of two-agent MultiAgentCartPole with two
+   policies, each policy's learner on the card, the result keys the
+   reference's.
+17. [rllib-parity]: two optimizer steps of PPO (two epochs of one
+   minibatch of the whole batch) and two IMPALA updates from the same
+   weights and batch on the card and on the CPU: every leaf's gradient at
+   every step within 1e-5 of its largest element, parameters within 1e-6
+   absolute, metrics within 1e-5 relative or 1e-6 times the batch's mean
+   |term| absolute (RLLIB_PARITY_*). Each [rllib-*] phase prints its
+   seconds.
+18. Print the kernels line (each kernel's numbers by model path), the card's
    name and power limit, and last the result line {"ok": true, ...}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -166,6 +193,7 @@ from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -2642,6 +2670,343 @@ def parallel_phase(card: str, profile: bool = False) -> dict:
     return launches
 
 
+# [rllib-*]: RLlib on the card (ray_tpu_torch/rllib): rollouts on the host
+# CPU, the learner's SGD on `device`. [rllib-ppo] is BASELINE config 2 at
+# the reference's settings (tests/test_rllib_ppo.py::test_cartpole_learning):
+# CartPole-v1, 16 envs, fragments of 256, train batch 4000, minibatch 128, 10
+# epochs, lr 3e-4, seed 0, until episode_reward_mean >= 150 over >= 20
+# episodes, within 100k env steps; [rllib-impala] the reference's
+# test_impala_learns_cartpole_sync target (best episode_reward_mean >= 150
+# within 40 iterations of 8 updates of 16 x 64 steps), then Pong-v0 at the
+# same shape for RLLIB_PONG_ITERS iterations.
+RLLIB_TARGET_REWARD, RLLIB_MIN_EPISODES = 150.0, 20
+RLLIB_PPO_MAX_STEPS = 100_000
+RLLIB_IMPALA_MAX_ITERS = 40
+RLLIB_PONG_ITERS = 3
+RLLIB_NUM_ENVS = 16
+RLLIB_PPO_FRAGMENT, RLLIB_IMPALA_FRAGMENT = 256, 64
+RLLIB_PPO_TRAINING = dict(train_batch_size=4000, minibatch_size=128,
+                          num_epochs=10, lr=3e-4)
+# [rllib-ma]: one iteration of 2048 env steps (2048 rows a policy)
+RLLIB_MA_TRAINING = dict(train_batch_size=2048, minibatch_size=256, num_epochs=4)
+# [rllib-parity]: two optimizer steps of PPO (two epochs, each one
+# minibatch of the whole batch) and two IMPALA updates from the same
+# weights and batch on the card and on the CPU, f32 with TF32 off.
+# - Every leaf's gradient at every step: |g_card - g_cpu| over max |g_cpu|
+#   within 1e-5. Each element is a sum over the batch's rows in another
+#   order on each device, so the two differ by rounding: some ulps of the
+#   leaf's largest element, well under 1e-5 of it; a leaf wrong by a factor
+#   of 1.001 fails.
+# - Parameters within 1e-6 absolute (magnitude <~ 2). Adam's first step is
+#   about ±lr whatever the gradient's size; its second depends on the two
+#   steps' gradients' ratio, so a leaf's gradient wrong by a factor moves
+#   the parameters by ~0.1·lr = 3e-5. A gradient element at rounding level
+#   (exactly 0 on a device) would flip the first step by 2·lr; none is
+#   (checked).
+# - Metrics (means over the steps of means over the batch) within 1e-5
+#   relative, or absolutely within 1e-6 times the mean |term| of the batch
+#   the losses average (PPO: the standardized advantages, IMPALA: the
+#   rewards), about 16 ulps of a term: PPO's first-step policy_loss and
+#   mean_kl are rounding (0 on one device, 1e-8 on the other), so these two
+#   are held by their second step only.
+RLLIB_PARITY_STEPS = 2
+RLLIB_PARITY_GRAD_TOL = 1e-5     # relative to the leaf's largest element
+RLLIB_PARITY_PARAM_TOL = 1e-6    # absolute, parameters of magnitude <~ 2
+RLLIB_PARITY_METRIC_TOL = 1e-5   # relative,
+RLLIB_PARITY_METRIC_ATOL = 1e-6  # or this times the batch's mean |term|
+
+
+def rllib_timed(algo, device) -> dict:
+    """Wraps the algorithm's sampling and its learner's update with host
+    clocks (the update ends in a synchronization) and returns the lists
+    they fill: sample seconds, update seconds, minibatch steps."""
+    t = {"sample_s": [], "update_s": [], "sgd_steps": []}
+    groups = algo._all_learner_groups().values()
+    runner = algo.local_runner
+    sample = runner.sample
+
+    def timed_sample(*a, **kw):
+        s = time.perf_counter()
+        out = sample(*a, **kw)
+        t["sample_s"].append(time.perf_counter() - s)
+        return out
+    runner.sample = timed_sample
+    for g in groups:
+        learner, update = g._learner, g.update
+
+        def timed_update(batch, _update=update, _learner=learner):
+            steps, s = _learner._step, time.perf_counter()
+            out = _update(batch)
+            sync(device)
+            t["update_s"].append(time.perf_counter() - s)
+            t["sgd_steps"].append(_learner._step - steps)
+            return out
+        g.update = timed_update
+    return t
+
+
+def rllib_placement(tag: str, algo, device) -> None:
+    """Each learner's parameters and Adam moments on `device`, the
+    runner's policy on the host CPU."""
+    from ray_tpu_torch.rllib.models import tree_leaves
+
+    want = torch.device(device).type
+    for pid, g in algo._all_learner_groups().items():
+        learner = g._learner
+        opt = [t for s in learner._optimizer.state.values() for t in s.values()]
+        where = {t.device.type for t in tree_leaves(learner.params) + opt}
+        if where != {want}:
+            fail(f"[{tag}] learner {pid} holds tensors on {where}, not {want}")
+    policies = getattr(algo.local_runner, "policies", None) or {
+        "": algo.local_runner.params}
+    where = {t.device.type for p in policies.values() for t in tree_leaves(p)}
+    if where != {"cpu"}:
+        fail(f"[{tag}] the runner's policy is on {where}, not the CPU")
+
+
+def rllib_iteration_row(tag: str, it: int, result: dict, t: dict, device) -> str:
+    """One iteration's numbers: sample and update seconds (this
+    iteration's calls), minibatch steps/s, env-steps/s overall, peak
+    device memory."""
+    sample_s, update_s = sum(t["sample_s"]), sum(t["update_s"])
+    steps = sum(t["sgd_steps"])
+    peak = peak_memory(device)
+    row = (f"[{tag}] iter {it}: reward {result.get('episode_reward_mean', float('nan')):.2f} "
+           f"({result.get('episodes_this_window', 0)} episodes), "
+           f"timesteps {result['timesteps_total']}, sample {sample_s:.3f} s, "
+           f"update {update_s:.3f} s ({len(t['update_s'])} updates, {steps} "
+           f"minibatch steps, {steps / max(update_s, 1e-9):.1f} steps/s), "
+           f"env-steps/s {result['timesteps_total'] / result['time_total_s']:.1f}, "
+           f"peak {'n/a' if peak is None else f'{peak / 1e9:.3f} GB'}")
+    for v in t.values():
+        v.clear()
+    return row
+
+
+def rllib_ppo(card: str, device="cuda", profile: bool = False) -> dict:
+    """[rllib-ppo]: BASELINE config 2 through PPOConfig()...build().train()
+    with the learner on `device`, until the target (fatal past
+    RLLIB_PPO_MAX_STEPS env steps); with `profile`, one more update's
+    device time by kernel."""
+    from ray_tpu_torch.rllib.algorithms import PPOConfig
+
+    algo = (PPOConfig()
+            .environment("CartPole-v1", num_envs_per_worker=RLLIB_NUM_ENVS)
+            .rollouts(num_rollout_workers=0,
+                      rollout_fragment_length=RLLIB_PPO_FRAGMENT)
+            .training(**RLLIB_PPO_TRAINING)
+            .resources(learner_device=device)
+            .debugging(seed=0)
+            .build())
+    rllib_placement("rllib-ppo", algo, device)
+    t = rllib_timed(algo, device)
+    result, it, update_ms = {}, 0, []
+    while result.get("timesteps_total", 0) < RLLIB_PPO_MAX_STEPS:
+        it += 1
+        result = algo.train()
+        update_ms.append(sum(t["update_s"]) * 1e3)
+        log(rllib_iteration_row("rllib-ppo", it, result, t, device))
+        if (result["episode_reward_mean"] >= RLLIB_TARGET_REWARD
+                and result["episodes_this_window"] >= RLLIB_MIN_EPISODES):
+            break
+    else:
+        fail(f"[rllib-ppo] episode_reward_mean "
+             f"{result['episode_reward_mean']:.2f} < {RLLIB_TARGET_REWARD} "
+             f"after {result['timesteps_total']} env steps")
+    rllib_placement("rllib-ppo", algo, device)
+    for k in ("total_loss", "grad_norm", "policy_loss", "vf_loss"):
+        if not math.isfinite(result[k]):
+            fail(f"[rllib-ppo] {k} is {result[k]}")
+    log(f"[rllib-ppo] reached {result['episode_reward_mean']:.2f} over "
+        f"{result['episodes_this_window']} episodes in {it} iterations, "
+        f"{result['timesteps_total']} env steps; update ms by iteration "
+        f"{[round(x, 1) for x in update_ms]}; {card}")
+    if profile:
+        batch = algo.sample_batch()
+
+        def one_update():
+            algo.learner_group.update(batch)
+            sync(device)
+        profile_device_time(f"one PPO update ({len(batch)} rows)", one_update,
+                            top=16)
+    return {"iterations": it, "env_steps": result["timesteps_total"],
+            "update_ms": update_ms}
+
+
+def rllib_impala(card: str, device="cuda") -> dict:
+    """[rllib-impala]: IMPALA's inline path (the reference's synchronous
+    training_step) on CartPole to the reference's target, then Pong-v0's
+    env-steps/s over RLLIB_PONG_ITERS iterations: one process, rollouts
+    inline, not the reference's asynchronous actors (BASELINE config 4)."""
+    from ray_tpu_torch.rllib.algorithms import IMPALAConfig
+
+    def build(env, **training):
+        return (IMPALAConfig()
+                .environment(env, num_envs_per_worker=RLLIB_NUM_ENVS)
+                .rollouts(num_rollout_workers=0,
+                          rollout_fragment_length=RLLIB_IMPALA_FRAGMENT)
+                .training(updates_per_iteration=8, **training)
+                .resources(learner_device=device)
+                .debugging(seed=0)
+                .build())
+
+    algo = build("CartPole-v1", lr=5e-4, entropy_coeff=0.005)
+    rllib_placement("rllib-impala", algo, device)
+    t = rllib_timed(algo, device)
+    best = -math.inf
+    for it in range(1, RLLIB_IMPALA_MAX_ITERS + 1):
+        result = algo.train()
+        log(rllib_iteration_row("rllib-impala", it, result, t, device))
+        if math.isfinite(result["episode_reward_mean"]):
+            best = max(best, result["episode_reward_mean"])
+        if best >= RLLIB_TARGET_REWARD:
+            break
+    if best < RLLIB_TARGET_REWARD:
+        fail(f"[rllib-impala] best episode_reward_mean {best:.2f} < "
+             f"{RLLIB_TARGET_REWARD} in {RLLIB_IMPALA_MAX_ITERS} iterations")
+    log(f"[rllib-impala] CartPole best {best:.2f} in {it} iterations, "
+        f"{result['timesteps_total']} env steps")
+
+    pong = build("Pong-v0")
+    t = rllib_timed(pong, device)
+    rates = []
+    for i in range(1, RLLIB_PONG_ITERS + 1):
+        result = pong.train()
+        sample_ms = 1e3 * sum(t["sample_s"]) / len(t["sample_s"])
+        update_ms = 1e3 * sum(t["update_s"]) / len(t["update_s"])
+        log(rllib_iteration_row("rllib-impala-pong", i, result, t, device))
+        log(f"[rllib-impala-pong] iter {i} (inline, one process): "
+            f"env_steps_per_sec {result['env_steps_per_sec']:.1f}, update "
+            f"{update_ms:.3f} ms and sample {sample_ms:.3f} ms a round of "
+            f"{RLLIB_NUM_ENVS} x {RLLIB_IMPALA_FRAGMENT} steps; {card}")
+        rates.append(result["env_steps_per_sec"])
+        if not math.isfinite(result["total_loss"]):
+            fail(f"[rllib-impala-pong] total_loss is {result['total_loss']}")
+    return {"cartpole_iterations": it, "pong_env_steps_per_sec": rates}
+
+
+RLLIB_MA_KEYS = {"timesteps_this_iter", "policy/p0/loss", "policy/p1/loss",
+                 "per_agent_reward_mean", "episode_reward_mean",
+                 "training_iteration", "timesteps_total", "time_this_iter_s",
+                 "time_total_s"}
+
+
+def rllib_ma(device="cuda") -> dict:
+    """[rllib-ma]: one train() of two-agent MultiAgentCartPole with two
+    policies, each policy's learner on `device`; the result keys are the
+    reference's (ray_tpu/rllib/algorithms/ppo.py::_ma_training_step)."""
+    from ray_tpu_torch.rllib.algorithms import PPOConfig
+
+    algo = (PPOConfig()
+            .environment("MultiAgentCartPole", num_envs_per_worker=RLLIB_NUM_ENVS,
+                         env_kwargs={"num_agents": 2})
+            .rollouts(num_rollout_workers=0, rollout_fragment_length=128)
+            .multi_agent(policies=["p0", "p1"],
+                         policy_mapping_fn=lambda aid: "p" + aid[-1])
+            .training(**RLLIB_MA_TRAINING)
+            .resources(learner_device=device)
+            .debugging(seed=0)
+            .build())
+    rllib_placement("rllib-ma", algo, device)
+    t = rllib_timed(algo, device)
+    result = algo.train()
+    if set(result) != RLLIB_MA_KEYS:
+        fail(f"[rllib-ma] result keys {sorted(result)}, not the reference's "
+             f"{sorted(RLLIB_MA_KEYS)}")
+    if set(result["per_agent_reward_mean"]) != {"agent_0", "agent_1"}:
+        fail(f"[rllib-ma] per-agent stats {result['per_agent_reward_mean']}")
+    log(f"[rllib-ma] per-agent reward {result['per_agent_reward_mean']}, "
+        f"{len(t['update_s'])} learner updates in "
+        f"{1e3 * sum(t['update_s']):.1f} ms, sample {sum(t['sample_s']):.3f} s")
+    return result
+
+
+def rllib_parity(devices=("cuda", "cpu")) -> dict:
+    """[rllib-parity]: RLLIB_PARITY_STEPS optimizer steps of PPO (one
+    minibatch of the whole batch an epoch) and of IMPALA (one update a
+    step) from the same initial weights (drawn on the host) and the same
+    batch on each of `devices`: every leaf's gradient at every step, the
+    parameters and the metrics held to the first device's with the
+    RLLIB_PARITY_* limits."""
+    from ray_tpu_torch.rllib.env_runner import EnvRunner
+    from ray_tpu_torch.rllib.learner import IMPALALearner, PPOLearner
+    from ray_tpu_torch.rllib.models import tree_leaves
+
+    out = {}
+    rows = RLLIB_NUM_ENVS * RLLIB_PPO_FRAGMENT
+    for name, cls, kw, post, steps in (
+            ("ppo", PPOLearner, dict(num_epochs=RLLIB_PARITY_STEPS,
+                                     minibatch_size=rows), "gae",
+             RLLIB_PPO_FRAGMENT),
+            ("impala", IMPALALearner, {}, "vtrace", RLLIB_IMPALA_FRAGMENT)):
+        batch, _ = EnvRunner("CartPole-v1", num_envs=RLLIB_NUM_ENVS, seed=0,
+                             postprocess=post).sample(steps)
+        if name == "ppo":
+            adv = np.asarray(batch["advantages"], np.float32)
+            terms = (adv - adv.mean()) / max(float(adv.std()), 1e-6)
+        else:
+            terms = np.asarray(batch["rewards"], np.float32)
+        metric_atol = RLLIB_PARITY_METRIC_ATOL * float(np.abs(terms).mean())
+        runs = []
+        for device in devices:
+            learner = cls(obs_dim=4, num_actions=2, seed=0, device=device, **kw)
+            grads, step = [], learner._optimizer.step
+
+            def recorded_step(_learner=learner, _step=step, _grads=grads):
+                _grads.append([p.grad.detach().to("cpu", copy=True)
+                               for p in _learner._leaves])
+                return _step()
+            learner._optimizer.step = recorded_step
+            updates = [learner.update(batch) for _ in range(
+                1 if name == "ppo" else RLLIB_PARITY_STEPS)]
+            if len(grads) != RLLIB_PARITY_STEPS:
+                fail(f"[rllib-parity] {name} on {device}: {len(grads)} "
+                     f"optimizer steps, not {RLLIB_PARITY_STEPS}")
+            if any(bool((g == 0).any()) for g in grads[0]):
+                fail(f"[rllib-parity] {name} on {device}: a first-step "
+                     f"gradient element is 0, where Adam's step is a coin flip")
+            metrics = {k: float(np.mean([m[k] for m in updates]))
+                       for k in updates[0]}
+            runs.append((metrics, tree_leaves(learner.get_weights()), grads))
+        (m0, w0, g0), (m1, w1, g1) = runs
+        grad_err = max(float((a - b).abs().max() / a.abs().max())
+                       for s0, s1 in zip(g0, g1) for a, b in zip(s0, s1))
+        param_err = max(float(abs(a - b).max()) for a, b in zip(w0, w1))
+        metric_err = {k: abs(m0[k] - m1[k]) for k in m0}
+        log(f"[rllib-parity] {name} {devices[0]} vs {devices[1]}, "
+            f"{RLLIB_PARITY_STEPS} steps: gradients max rel "
+            f"{grad_err:.3e} over {len(g0[0])} leaves a step (limit "
+            f"{RLLIB_PARITY_GRAD_TOL}); params max abs {param_err:.3e} "
+            f"(limit {RLLIB_PARITY_PARAM_TOL}); metrics "
+            + ", ".join(f"{k} {m0[k]:.6g} by {e:.2e}" for k, e in metric_err.items())
+            + f" (limit {RLLIB_PARITY_METRIC_TOL} relative or "
+            f"{metric_atol:.3e} absolute)")
+        bad = [k for k, e in metric_err.items()
+               if e > max(RLLIB_PARITY_METRIC_TOL * abs(m0[k]), metric_atol)]
+        if (grad_err > RLLIB_PARITY_GRAD_TOL or param_err > RLLIB_PARITY_PARAM_TOL
+                or bad):
+            fail(f"[rllib-parity] {name}: the update on {devices[0]} and on "
+                 f"{devices[1]} differ (gradients {grad_err:.3e}, params "
+                 f"{param_err:.3e}, metrics {bad})")
+        out[name] = {"grad_max_rel": grad_err, "param_max_abs": param_err,
+                     "metric_max_abs": max(metric_err.values())}
+    return out
+
+
+def rllib_phase(card: str, profile: bool = False, device="cuda") -> dict:
+    """Every [rllib-*] phase in turn, each phase's seconds printed."""
+    out = {}
+    for tag, fn in (("rllib-ppo", lambda: rllib_ppo(card, device, profile)),
+                    ("rllib-impala", lambda: rllib_impala(card, device)),
+                    ("rllib-ma", lambda: rllib_ma(device)),
+                    ("rllib-parity", lambda: rllib_parity((device, "cpu")))):
+        free_device_memory()
+        s = time.perf_counter()
+        out[tag] = fn()
+        log(f"[{tag}] phase took {time.perf_counter() - s:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true")
@@ -2767,6 +3132,8 @@ def main() -> int:
                     "bound_ms", "bound_by", "library_ms", "library")}
                     for off in sorted(rows, key=int)}}
         return out
+
+    rllib_phase(card, args.profile)
 
     # top level: GPT-2's training path at its own shape; by_path: each main
     # path at its own shape with its own launches

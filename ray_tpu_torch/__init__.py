@@ -8,6 +8,17 @@ or of ray_tpu; entry points run on the card unless the caller passes
 device="cpu", where every kernel wrapper uses its plain PyTorch version.
 """
 
+import torch as _torch
+
 from ray_tpu_torch._version import __version__
+
+# MKL's vector math, which torch.exp, tanh, log, sin ... of a float CPU
+# tensor call in 2048-element chunks over the intra-op threads, can get
+# its first call in a process wrong when several threads make it at once:
+# some threads' chunks come back good to only about 1e-4 relative, and
+# every later call is exact (seen in about 3 % of fresh processes that had
+# imported JAX first). One call on this thread first sets it up for the
+# whole process, so the port's first call equals its second.
+_torch.exp(_torch.zeros(1))
 
 __all__ = ["__version__"]

@@ -39,15 +39,15 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """A JAX parameter tree (numpy arrays, or anything np.asarray takes) →
-    the same nested dict of torch tensors, names, shapes and dtypes
-    unchanged."""
-    return {
-        k: params_from_jax(v, device) if isinstance(v, dict)
-        else tensor_from_numpy(v, device)
-        for k, v in tree.items()
-    }
+def params_from_jax(tree: Any, device="cuda") -> Any:
+    """A JAX parameter tree (dicts and lists of numpy arrays, or anything
+    np.asarray takes) → the same tree of torch tensors, names, shapes and
+    dtypes unchanged."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
+    return tensor_from_numpy(tree, device)
 
 
 def _parameter_dict(tree: Dict[str, Any]) -> nn.ParameterDict:

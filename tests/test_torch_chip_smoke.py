@@ -14,6 +14,7 @@ highest register on cuobjdump-like text.
 
 import importlib.util
 import pathlib
+import re
 import subprocess
 import types
 from dataclasses import replace
@@ -622,3 +623,85 @@ def test_bounds_count_only_the_kv_rows_a_call_needs(smoke):
     # the whole sequence: every row read, as before
     _, _, whole, _ = smoke.attention_bound(k, k, 0, 0, True)
     assert whole == 2 * 24 * 12 * 4 * 1024 * 64 + 4 * 24 * 12 * 1024
+
+
+@pytest.fixture
+def small_rllib(smoke, monkeypatch):
+    """The [rllib-*] phases at a CPU size: 4 envs, short fragments, small
+    batches, and a reward target a random CartPole policy meets."""
+    monkeypatch.setattr(smoke, "RLLIB_NUM_ENVS", 4)
+    monkeypatch.setattr(smoke, "RLLIB_PPO_FRAGMENT", 32)
+    monkeypatch.setattr(smoke, "RLLIB_IMPALA_FRAGMENT", 16)
+    monkeypatch.setattr(smoke, "RLLIB_PPO_TRAINING", dict(
+        train_batch_size=256, minibatch_size=64, num_epochs=2, lr=3e-4))
+    monkeypatch.setattr(smoke, "RLLIB_MA_TRAINING", dict(
+        train_batch_size=128, minibatch_size=64, num_epochs=1))
+    monkeypatch.setattr(smoke, "RLLIB_PONG_ITERS", 1)
+    return smoke
+
+
+def test_rllib_phases_on_the_cpu(small_rllib, capsys, monkeypatch):
+    """Every [rllib-*] phase end to end with the learner on the CPU: the
+    placement checks pass (learner tensors on the learner's device, the
+    runner's policy on the CPU), the per-iteration rows are printed, the
+    multi-agent result has the reference's keys, and the parity phase of
+    one device against itself is exact."""
+    smoke = small_rllib
+    monkeypatch.setattr(smoke, "RLLIB_TARGET_REWARD", 12.0)
+    monkeypatch.setattr(smoke, "RLLIB_MIN_EPISODES", 5)
+    out = smoke.rllib_phase("card", device="cpu")
+    assert out["rllib-ppo"]["env_steps"] == 256
+    assert out["rllib-impala"]["cartpole_iterations"] >= 1
+    assert set(out["rllib-ma"]) == smoke.RLLIB_MA_KEYS
+    assert all(v == {"grad_max_rel": 0.0, "param_max_abs": 0.0,
+                     "metric_max_abs": 0.0}
+               for v in out["rllib-parity"].values())
+    text = capsys.readouterr().out
+    for tag in ("rllib-ppo", "rllib-impala", "rllib-impala-pong", "rllib-ma",
+                "rllib-parity"):
+        assert f"[{tag}]" in text
+    assert "minibatch steps" in text and "env_steps_per_sec" in text
+
+
+def test_rllib_phases_fail_where_they_should(small_rllib, monkeypatch):
+    """A target not met within the step limit fails [rllib-ppo]; a learner
+    on another device than the one asked for fails the placement check."""
+    smoke = small_rllib
+    monkeypatch.setattr(smoke, "RLLIB_TARGET_REWARD", 1e9)
+    monkeypatch.setattr(smoke, "RLLIB_PPO_MAX_STEPS", 256)
+    with pytest.raises(SystemExit, match=r"\[rllib-ppo\] episode_reward_mean"):
+        smoke.rllib_ppo("card", device="cpu")
+    from ray_tpu_torch.rllib.algorithms import PPOConfig
+
+    algo = (PPOConfig().environment("CartPole-v1", num_envs_per_worker=2)
+            .resources(learner_device="cpu").build())
+    with pytest.raises(SystemExit, match="not cuda"):
+        smoke.rllib_placement("rllib-ppo", algo, "cuda")
+
+
+@pytest.mark.parametrize("algo", ["ppo", "impala"])
+def test_rllib_parity_fails_on_a_gradient_off_by_a_factor(small_rllib, monkeypatch,
+                                                          capsys, algo):
+    """A learner whose gradients are all 1.001 times the other's takes the
+    same first Adam step (m/sqrt(v) is scale-free) yet fails [rllib-parity]:
+    it holds every leaf's gradient, not only the parameters."""
+    from ray_tpu_torch.rllib import learner as tlearner
+
+    cls = {"ppo": tlearner.PPOLearner, "impala": tlearner.IMPALALearner}[algo]
+    made, loss_fn = [], cls.loss_fn
+
+    def scaled(self, params, mb):
+        loss, aux = loss_fn(self, params, mb)
+        return (loss * 1.001 if self is made[-1] and len(made) == 2 else loss), aux
+    init = cls.__init__
+
+    def counting_init(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+    monkeypatch.setattr(cls, "loss_fn", scaled)
+    monkeypatch.setattr(cls, "__init__", counting_init)
+    with pytest.raises(SystemExit, match=rf"\[rllib-parity\] {algo}: .*gradients"):
+        small_rllib.rllib_parity(("cpu", "cpu"))
+    row = re.search(rf"\[rllib-parity\] {algo} cpu vs cpu.*gradients max rel (\S+)",
+                    capsys.readouterr().out)
+    assert float(row.group(1)) > small_rllib.RLLIB_PARITY_GRAD_TOL
