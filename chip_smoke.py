@@ -160,17 +160,37 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    steps), then 3 iterations on Pong-v0 at the same shape: env-steps/s,
    update ms and sample ms, inline in one process (BASELINE config 4's
    asynchronous actors are not ported, so not comparable with it).
-16. [rllib-ma]: one train() of two-agent MultiAgentCartPole with two
+16. [rllib-dqn]: DQNConfig()...build().train() at the reference's learning
+   test's settings (tests/test_rllib_dqn.py::test_dqn_learns_cartpole:
+   CartPole-v1, 8 envs, fragments of 8, lr 1e-3, batch 64, learning from
+   500 rows, target synced every 60 updates, 8 updates an iteration,
+   epsilon over 6000 env steps, prioritized replay), fatal unless the best
+   episode_reward_mean reaches 150 within 500 iterations. The replay
+   buffer and the rollouts stay on the host; the learner's parameters,
+   target and Adam moments must be CUDA tensors. Printed: iterations and
+   env steps to the target, update ms (host clock around a synchronized
+   update()) and updates/s, sample ms an iteration, peak device memory;
+   with --profile, the busy share of one more training_step.
+17. [rllib-sac]: SACConfig()...build().train() in the same way at its
+   test's settings (fragments of 16, lr 3e-3, batch 256): 150 within 600
+   iterations.
+18. [rllib-bc]: the reference test's scripted CartPole expert, 40 episodes
+   recorded with the port's JsonWriter into a temporary directory, then
+   BCConfig().offline_data(...)...build().train() (lr 3e-3, batch 256, 32
+   updates an iteration, an evaluation fragment of 64 steps): 120 within
+   40 iterations.
+19. [rllib-ma]: one train() of two-agent MultiAgentCartPole with two
    policies, each policy's learner on the card, the result keys the
    reference's.
-17. [rllib-parity]: two optimizer steps of PPO (two epochs of one
-   minibatch of the whole batch) and two IMPALA updates from the same
-   weights and batch on the card and on the CPU: every leaf's gradient at
-   every step within 1e-5 of its largest element, parameters within 1e-6
-   absolute, metrics within 1e-5 relative or 1e-6 times the batch's mean
-   |term| absolute (RLLIB_PARITY_*). Each [rllib-*] phase prints its
-   seconds.
-18. Print the kernels line (each kernel's numbers by model path), the card's
+20. [rllib-parity]: two optimizer steps of PPO (two epochs of one
+   minibatch of the whole batch), and two updates each of IMPALA, DQN
+   (its target synced at the second), SAC and BC from the same weights and
+   batch on the card and on the CPU: every leaf's gradient at every step
+   within 1e-5 of its largest element (a leaf no loss reaches 0 on both),
+   parameters and targets within 1e-6 absolute, metrics and |TD| errors
+   within 1e-5 relative or 1e-6 times the batch's mean |term| absolute
+   (RLLIB_PARITY_*). Each [rllib-*] phase prints its seconds.
+21. Print the kernels line (each kernel's numbers by model path), the card's
    name and power limit, and last the result line {"ok": true, ...}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -2689,31 +2709,62 @@ RLLIB_PPO_TRAINING = dict(train_batch_size=4000, minibatch_size=128,
                           num_epochs=10, lr=3e-4)
 # [rllib-ma]: one iteration of 2048 env steps (2048 rows a policy)
 RLLIB_MA_TRAINING = dict(train_batch_size=2048, minibatch_size=256, num_epochs=4)
+# [rllib-dqn], [rllib-sac], [rllib-bc]: the reference's learning tests'
+# settings, 8 envs, 64×64 nets, seed 0: best episode_reward_mean >= 150
+# within 500 DQN iterations (tests/test_rllib_dqn.py::
+# test_dqn_learns_cartpole: fragments of 8, lr 1e-3, batch 64, replay warm
+# at 500 rows, target synced every 60 updates, 8 updates an iteration,
+# epsilon down to 0.05 over 6000 env steps, prioritized replay), >= 150
+# within 600 SAC iterations (tests/test_rllib_sac.py::
+# test_sac_learns_cartpole: fragments of 16, lr 3e-3, batch 256) and
+# >= 120 within 40 BC iterations on a scripted expert's 40 logged
+# episodes (tests/test_rllib_offline.py::test_bc_clones_scripted_expert:
+# lr 3e-3, batch 256, 32 updates an iteration, evaluation fragments of 64).
+# A row every RLLIB_LOG_EVERY iterations and at the target.
+RLLIB_OFFPOLICY_ENVS = 8
+RLLIB_DQN_FRAGMENT, RLLIB_SAC_FRAGMENT, RLLIB_BC_FRAGMENT = 8, 16, 64
+RLLIB_DQN_TRAINING = dict(lr=1e-3, train_batch_size=64, learning_starts=500,
+                          target_update_freq=60, train_intensity=8,
+                          epsilon_timesteps=6_000)
+RLLIB_SAC_TRAINING = dict(lr=3e-3, train_batch_size=256, learning_starts=500,
+                          train_intensity=8)
+RLLIB_BC_TRAINING = dict(lr=3e-3, train_batch_size=256, train_intensity=32)
+RLLIB_DQN_MAX_ITERS, RLLIB_SAC_MAX_ITERS, RLLIB_BC_MAX_ITERS = 500, 600, 40
+RLLIB_BC_TARGET_REWARD = 120.0
+RLLIB_BC_EXPERT_EPISODES = 40
+RLLIB_LOG_EVERY = 50
 # [rllib-parity]: two optimizer steps of PPO (two epochs, each one
-# minibatch of the whole batch) and two IMPALA updates from the same
-# weights and batch on the card and on the CPU, f32 with TF32 off.
+# minibatch of the whole batch), and two updates of IMPALA, DQN (its
+# target synced at the second), SAC and BC, from the same weights and
+# batch on the card and on the CPU, f32 with TF32 off. DQN, SAC and BC
+# take one replay batch of RLLIB_PARITY_ROWS transitions: PER weights
+# that are not uniform, some episodes' ends.
 # - Every leaf's gradient at every step: |g_card - g_cpu| over max |g_cpu|
 #   within 1e-5. Each element is a sum over the batch's rows in another
 #   order on each device, so the two differ by rounding: some ulps of the
-#   leaf's largest element, well under 1e-5 of it; a leaf wrong by a factor
-#   of 1.001 fails.
-# - Parameters within 1e-6 absolute (magnitude <~ 2). Adam's first step is
-#   about ±lr whatever the gradient's size; its second depends on the two
-#   steps' gradients' ratio, so a leaf's gradient wrong by a factor moves
-#   the parameters by ~0.1·lr = 3e-5. A gradient element at rounding level
-#   (exactly 0 on a device) would flip the first step by 2·lr; none is
-#   (checked).
-# - Metrics (means over the steps of means over the batch) within 1e-5
-#   relative, or absolutely within 1e-6 times the mean |term| of the batch
-#   the losses average (PPO: the standardized advantages, IMPALA: the
-#   rewards), about 16 ulps of a term: PPO's first-step policy_loss and
-#   mean_kl are rounding (0 on one device, 1e-8 on the other), so these two
-#   are held by their second step only.
+#   leaf's largest element, well under 1e-5 of it; a leaf wrong by a
+#   factor of 1.001 fails. A leaf no loss reaches (DQN's, SAC's and BC's
+#   value heads) is exactly 0 on both.
+# - Parameters and targets within 1e-6 absolute (magnitude <~ 2). Adam's
+#   first step is about ±lr whatever the gradient's size; its second
+#   depends on the two steps' gradients' ratio, so a leaf's gradient wrong
+#   by a factor moves the parameters by ~0.1·lr = 3e-5. A gradient element
+#   at rounding level (exactly 0 on a device) would flip the first step by
+#   2·lr; none is (checked).
+# - Metrics (means over the steps of means over the batch), and DQN's and
+#   SAC's |TD| errors element by element, within 1e-5 relative, or
+#   absolutely within 1e-6 times the mean |term| of the batch the losses
+#   average (PPO: the standardized advantages; IMPALA, DQN, SAC: the
+#   rewards; BC: −log π of a near-uniform policy, log A), about 16 ulps of
+#   a term: PPO's first-step policy_loss and mean_kl are rounding (0 on one
+#   device, 1e-8 on the other), so these two are held by their second step
+#   only.
 RLLIB_PARITY_STEPS = 2
 RLLIB_PARITY_GRAD_TOL = 1e-5     # relative to the leaf's largest element
 RLLIB_PARITY_PARAM_TOL = 1e-6    # absolute, parameters of magnitude <~ 2
 RLLIB_PARITY_METRIC_TOL = 1e-5   # relative,
 RLLIB_PARITY_METRIC_ATOL = 1e-6  # or this times the batch's mean |term|
+RLLIB_PARITY_ROWS = 256
 
 
 def rllib_timed(algo, device) -> dict:
@@ -2746,22 +2797,30 @@ def rllib_timed(algo, device) -> dict:
 
 
 def rllib_placement(tag: str, algo, device) -> None:
-    """Each learner's parameters and Adam moments on `device`, the
-    runner's policy on the host CPU."""
+    """Each learner's parameters, targets (where it has them) and Adam
+    moments on `device`, the runner's policy on the host CPU; one line
+    says so."""
     from ray_tpu_torch.rllib.models import tree_leaves
 
     want = torch.device(device).type
+    counts = []
     for pid, g in algo._all_learner_groups().items():
         learner = g._learner
         opt = [t for s in learner._optimizer.state.values() for t in s.values()]
-        where = {t.device.type for t in tree_leaves(learner.params) + opt}
+        targets = [] if learner.target is None else tree_leaves(learner.target)
+        params = tree_leaves(learner.params)
+        where = {t.device.type for t in params + targets + opt}
         if where != {want}:
             fail(f"[{tag}] learner {pid} holds tensors on {where}, not {want}")
+        counts.append(f"{len(params)} parameters, {len(targets)} targets, "
+                      f"{len(opt)} moments")
     policies = getattr(algo.local_runner, "policies", None) or {
         "": algo.local_runner.params}
     where = {t.device.type for p in policies.values() for t in tree_leaves(p)}
     if where != {"cpu"}:
         fail(f"[{tag}] the runner's policy is on {where}, not the CPU")
+    log(f"[{tag}] placement: learner {'; '.join(counts)} on {want}; the "
+        f"runner's policy on the CPU")
 
 
 def rllib_iteration_row(tag: str, it: int, result: dict, t: dict, device) -> str:
@@ -2885,6 +2944,161 @@ def rllib_impala(card: str, device="cuda") -> dict:
     return {"cartpole_iterations": it, "pong_env_steps_per_sec": rates}
 
 
+def rllib_to_target(card: str, tag: str, algo, device, max_iters: int,
+                    target: float) -> dict:
+    """train() until the best episode_reward_mean reaches `target`, fatal
+    past `max_iters` iterations: a row every RLLIB_LOG_EVERY iterations and
+    at the target, then iterations and env steps to it, update ms (host
+    clock around a synchronized update()) and updates/s, sample ms an
+    iteration, peak device memory, and the placement again."""
+    rllib_placement(tag, algo, device)
+    t = rllib_timed(algo, device)
+    update_s, sample_s, best, result = [], [], -math.inf, {}
+    for it in range(1, max_iters + 1):
+        result = algo.train()
+        update_s += t["update_s"]
+        sample_s.append(sum(t["sample_s"]))
+        if math.isfinite(result["episode_reward_mean"]):
+            best = max(best, result["episode_reward_mean"])
+        if best >= target or it % RLLIB_LOG_EVERY == 0:
+            log(rllib_iteration_row(tag, it, result, t, device))
+        for v in t.values():
+            v.clear()
+        if best >= target:
+            break
+    else:
+        fail(f"[{tag}] best episode_reward_mean {best:.2f} < {target} in "
+             f"{max_iters} iterations")
+    if not math.isfinite(result["loss"]):
+        fail(f"[{tag}] loss is {result['loss']}")
+    rllib_placement(tag, algo, device)
+    ms = 1e3 * np.asarray(update_s)
+    peak = peak_memory(device)
+    out = {"iterations": it, "env_steps": result["timesteps_total"], "best": best,
+           "updates": len(ms), "update_ms": float(np.median(ms)),
+           "updates_per_s": len(ms) / max(float(np.sum(update_s)), 1e-9),
+           "sample_ms": 1e3 * float(np.median(sample_s)),
+           "iteration_ms": 1e3 * result["time_total_s"] / it}
+    log(f"[{tag}] reached {best:.2f} in {it} iterations, {out['env_steps']} env "
+        f"steps, {result['time_total_s']:.1f} s; {len(ms)} updates: update ms "
+        f"median {out['update_ms']:.3f} (p10 {np.percentile(ms, 10):.3f}, p90 "
+        f"{np.percentile(ms, 90):.3f}), {out['updates_per_s']:.1f} updates/s; "
+        f"sample ms an iteration median {out['sample_ms']:.3f}; iteration ms "
+        f"mean {out['iteration_ms']:.3f}; peak "
+        f"{'n/a' if peak is None else f'{peak / 1e9:.4f} GB'}; {card}")
+    return out
+
+
+def rllib_profile_step(tag: str, algo, device) -> None:
+    """--profile: the device busy share of one more training_step."""
+    cfg = algo.algo_config
+
+    def one_step():
+        algo.training_step()
+        sync(device)
+    profile_device_time(
+        f"one {tag} training_step ({cfg.train_intensity} updates of "
+        f"{cfg.train_batch_size} rows)", one_step, top=16)
+
+
+def rllib_offpolicy_config(config_cls, fragment: int, training: dict, device):
+    return (config_cls()
+            .environment("CartPole-v1", num_envs_per_worker=RLLIB_OFFPOLICY_ENVS)
+            .rollouts(num_rollout_workers=0, rollout_fragment_length=fragment)
+            .training(hiddens=(64, 64), **training)
+            .resources(learner_device=device)
+            .debugging(seed=0))
+
+
+def rllib_dqn(card: str, device="cuda", profile: bool = False) -> dict:
+    """[rllib-dqn]: DQNConfig()...build().train() at the reference's
+    learning test's settings to its target."""
+    from ray_tpu_torch.rllib.algorithms import DQNConfig
+
+    algo = rllib_offpolicy_config(DQNConfig, RLLIB_DQN_FRAGMENT,
+                                  RLLIB_DQN_TRAINING, device).build()
+    out = rllib_to_target(card, "rllib-dqn", algo, device, RLLIB_DQN_MAX_ITERS,
+                          RLLIB_TARGET_REWARD)
+    if profile:
+        rllib_profile_step("rllib-dqn", algo, device)
+    return out
+
+
+def rllib_sac(card: str, device="cuda", profile: bool = False) -> dict:
+    """[rllib-sac]: SACConfig()...build().train() at the reference's
+    learning test's settings to its target."""
+    from ray_tpu_torch.rllib.algorithms import SACConfig
+
+    algo = rllib_offpolicy_config(SACConfig, RLLIB_SAC_FRAGMENT,
+                                  RLLIB_SAC_TRAINING, device).build()
+    out = rllib_to_target(card, "rllib-sac", algo, device, RLLIB_SAC_MAX_ITERS,
+                          RLLIB_TARGET_REWARD)
+    if profile:
+        rllib_profile_step("rllib-sac", algo, device)
+    return out
+
+
+def record_expert(path: str, episodes: int) -> float:
+    """The reference test's scripted CartPole controller
+    (tests/test_rllib_offline.py::_record_expert, copied): action 1 when
+    angle + 0.5·angular velocity > 0, one episode of at most 500 steps a
+    batch through the port's JsonWriter; the mean return."""
+    from ray_tpu_torch.rllib.env.cartpole import CartPoleVectorEnv
+    from ray_tpu_torch.rllib.offline import JsonWriter
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+
+    w = JsonWriter(path)
+    env = CartPoleVectorEnv(num_envs=1)
+    returns = []
+    for ep in range(episodes):
+        obs = env.reset(seed=ep)[0]
+        obs_l, act_l = [], []
+        total = 0.0
+        for _ in range(500):
+            a = int(obs[2] + 0.5 * obs[3] > 0)
+            obs_l.append(obs.copy())
+            act_l.append(a)
+            obs_v, r, terminated, truncated = env.step(np.asarray([a]))
+            obs = obs_v[0]
+            total += float(r[0])
+            if terminated[0] or truncated[0]:
+                break
+        returns.append(total)
+        w.write(SampleBatch({
+            SampleBatch.OBS: np.asarray(obs_l, np.float32),
+            SampleBatch.ACTIONS: np.asarray(act_l, np.int64),
+            SampleBatch.REWARDS: np.ones(len(act_l), np.float32),
+        }))
+    w.close()
+    return float(np.mean(returns))
+
+
+def rllib_bc(card: str, device="cuda") -> dict:
+    """[rllib-bc]: the scripted expert recorded into a temporary directory,
+    then BCConfig().offline_data(...)...build().train() at the reference's
+    learning test's settings to its target."""
+    import tempfile
+
+    from ray_tpu_torch.rllib.algorithms import BCConfig
+
+    with tempfile.TemporaryDirectory(prefix="rllib_bc_") as path:
+        expert = record_expert(path, RLLIB_BC_EXPERT_EPISODES)
+        algo = (BCConfig()
+                .offline_data(path)
+                .environment("CartPole-v1", num_envs_per_worker=RLLIB_OFFPOLICY_ENVS)
+                .rollouts(num_rollout_workers=0,
+                          rollout_fragment_length=RLLIB_BC_FRAGMENT)
+                .training(hiddens=(64, 64), **RLLIB_BC_TRAINING)
+                .resources(learner_device=device)
+                .debugging(seed=0)
+                .build())
+    log(f"[rllib-bc] expert: {RLLIB_BC_EXPERT_EPISODES} episodes, mean return "
+        f"{expert:.1f}, {len(algo.buffer)} logged rows")
+    out = rllib_to_target(card, "rllib-bc", algo, device, RLLIB_BC_MAX_ITERS,
+                          RLLIB_BC_TARGET_REWARD)
+    return {**out, "expert_mean_return": expert}
+
+
 RLLIB_MA_KEYS = {"timesteps_this_iter", "policy/p0/loss", "policy/p1/loss",
                  "per_agent_reward_mean", "episode_reward_mean",
                  "training_iteration", "timesteps_total", "time_this_iter_s",
@@ -2921,32 +3135,73 @@ def rllib_ma(device="cuda") -> dict:
     return result
 
 
-def rllib_parity(devices=("cuda", "cpu")) -> dict:
-    """[rllib-parity]: RLLIB_PARITY_STEPS optimizer steps of PPO (one
-    minibatch of the whole batch an epoch) and of IMPALA (one update a
-    step) from the same initial weights (drawn on the host) and the same
-    batch on each of `devices`: every leaf's gradient at every step, the
-    parameters and the metrics held to the first device's with the
-    RLLIB_PARITY_* limits."""
+def leaf_paths(tree, path=()) -> list:
+    """Each leaf's path of keys and indexes, in tree_leaves' order (dict
+    keys sorted)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, path + (i,))]
+    return [path]
+
+
+def rllib_parity_cases() -> list:
+    """[rllib-parity]'s learners: (name, class, kwargs, batch, updates, the
+    batch's mean |term|, whether a leaf path is one no loss reaches)."""
+    from ray_tpu_torch.rllib.algorithms.bc import BCLearner
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNLearner
+    from ray_tpu_torch.rllib.algorithms.sac import SACLearner
     from ray_tpu_torch.rllib.env_runner import EnvRunner
     from ray_tpu_torch.rllib.learner import IMPALALearner, PPOLearner
+    from ray_tpu_torch.rllib.replay_buffers import PrioritizedReplayBuffer
+
+    def runner(**kw):
+        return EnvRunner("CartPole-v1", seed=0, **kw)
+    ppo, _ = runner(num_envs=RLLIB_NUM_ENVS).sample(RLLIB_PPO_FRAGMENT)
+    adv = np.asarray(ppo["advantages"], np.float32)
+    impala, _ = runner(num_envs=RLLIB_NUM_ENVS, postprocess="vtrace").sample(
+        RLLIB_IMPALA_FRAGMENT)
+    transitions, _ = runner(num_envs=RLLIB_OFFPOLICY_ENVS, postprocess="transitions",
+                            act_mode="epsilon_greedy").sample(
+        2 * RLLIB_PARITY_ROWS // RLLIB_OFFPOLICY_ENVS, epsilon=1.0)
+    buffer = PrioritizedReplayBuffer(capacity=len(transitions), seed=0)
+    buffer.update_priorities(buffer.add(transitions), np.random.default_rng(0)
+                             .exponential(1.0, len(transitions)))
+    replay = buffer.sample(RLLIB_PARITY_ROWS)
+    if not (replay["terminateds"] | replay["truncateds"]).any() or (
+            replay["weights"].min() == replay["weights"].max()):
+        fail("[rllib-parity] the replay batch has no episode end or uniform weights")
+
+    def value_head(path):
+        return "vf" in path
+    return [
+        ("ppo", PPOLearner, dict(num_epochs=RLLIB_PARITY_STEPS,
+                                 minibatch_size=len(ppo)), ppo, 1,
+         float(np.abs((adv - adv.mean()) / max(float(adv.std()), 1e-6)).mean()),
+         None),
+        ("impala", IMPALALearner, {}, impala, RLLIB_PARITY_STEPS,
+         float(np.abs(impala["rewards"]).mean()), None),
+        ("dqn", DQNLearner, dict(target_update_freq=RLLIB_PARITY_STEPS), replay,
+         RLLIB_PARITY_STEPS, float(np.abs(replay["rewards"]).mean()), value_head),
+        ("sac", SACLearner, {}, replay, RLLIB_PARITY_STEPS,
+         float(np.abs(replay["rewards"]).mean()), value_head),
+        ("bc", BCLearner, {}, replay, RLLIB_PARITY_STEPS, float(np.log(2)),
+         value_head),
+    ]
+
+
+def rllib_parity(devices=("cuda", "cpu")) -> dict:
+    """[rllib-parity]: RLLIB_PARITY_STEPS optimizer steps of each learner
+    (PPO: one minibatch of the whole batch an epoch; the others one update
+    a step) from the same initial weights (drawn on the host) and the same
+    batch on each of `devices`: every leaf's gradient at every step, the
+    parameters and targets, the metrics and |TD| errors held to the first
+    device's with the RLLIB_PARITY_* limits."""
     from ray_tpu_torch.rllib.models import tree_leaves
 
     out = {}
-    rows = RLLIB_NUM_ENVS * RLLIB_PPO_FRAGMENT
-    for name, cls, kw, post, steps in (
-            ("ppo", PPOLearner, dict(num_epochs=RLLIB_PARITY_STEPS,
-                                     minibatch_size=rows), "gae",
-             RLLIB_PPO_FRAGMENT),
-            ("impala", IMPALALearner, {}, "vtrace", RLLIB_IMPALA_FRAGMENT)):
-        batch, _ = EnvRunner("CartPole-v1", num_envs=RLLIB_NUM_ENVS, seed=0,
-                             postprocess=post).sample(steps)
-        if name == "ppo":
-            adv = np.asarray(batch["advantages"], np.float32)
-            terms = (adv - adv.mean()) / max(float(adv.std()), 1e-6)
-        else:
-            terms = np.asarray(batch["rewards"], np.float32)
-        metric_atol = RLLIB_PARITY_METRIC_ATOL * float(np.abs(terms).mean())
+    for name, cls, kw, batch, n_updates, term, unreached in rllib_parity_cases():
+        metric_atol = RLLIB_PARITY_METRIC_ATOL * term
         runs = []
         for device in devices:
             learner = cls(obs_dim=4, num_actions=2, seed=0, device=device, **kw)
@@ -2957,32 +3212,50 @@ def rllib_parity(devices=("cuda", "cpu")) -> dict:
                                for p in _learner._leaves])
                 return _step()
             learner._optimizer.step = recorded_step
-            updates = [learner.update(batch) for _ in range(
-                1 if name == "ppo" else RLLIB_PARITY_STEPS)]
+            updates = [learner.update(batch) for _ in range(n_updates)]
             if len(grads) != RLLIB_PARITY_STEPS:
                 fail(f"[rllib-parity] {name} on {device}: {len(grads)} "
                      f"optimizer steps, not {RLLIB_PARITY_STEPS}")
-            if any(bool((g == 0).any()) for g in grads[0]):
+            paths = leaf_paths(learner.params)
+            zero = {i for i, p in enumerate(paths) if unreached and unreached(p)}
+            if any(bool(g[i].any()) for g in grads for i in zero):
+                fail(f"[rllib-parity] {name} on {device}: a leaf no loss "
+                     f"reaches has a gradient")
+            if any(bool((g == 0).any()) for i, g in enumerate(grads[0])
+                   if i not in zero):
                 fail(f"[rllib-parity] {name} on {device}: a first-step "
                      f"gradient element is 0, where Adam's step is a coin flip")
             metrics = {k: float(np.mean([m[k] for m in updates]))
-                       for k in updates[0]}
-            runs.append((metrics, tree_leaves(learner.get_weights()), grads))
-        (m0, w0, g0), (m1, w1, g1) = runs
+                       for k in updates[0] if k != "td_errors"}
+            td = (np.concatenate([m["td_errors"] for m in updates])
+                  if "td_errors" in updates[0] else np.zeros(0))
+            state = learner.get_state()
+            weights = tree_leaves(state["params"]) + tree_leaves(state.get("target", []))
+            runs.append((metrics, td, weights, grads, zero))
+        (m0, td0, w0, g0, zero), (m1, td1, w1, g1, _) = runs
         grad_err = max(float((a - b).abs().max() / a.abs().max())
-                       for s0, s1 in zip(g0, g1) for a, b in zip(s0, s1))
+                       for s0, s1 in zip(g0, g1)
+                       for i, (a, b) in enumerate(zip(s0, s1)) if i not in zero)
         param_err = max(float(abs(a - b).max()) for a, b in zip(w0, w1))
         metric_err = {k: abs(m0[k] - m1[k]) for k in m0}
-        log(f"[rllib-parity] {name} {devices[0]} vs {devices[1]}, "
-            f"{RLLIB_PARITY_STEPS} steps: gradients max rel "
-            f"{grad_err:.3e} over {len(g0[0])} leaves a step (limit "
-            f"{RLLIB_PARITY_GRAD_TOL}); params max abs {param_err:.3e} "
-            f"(limit {RLLIB_PARITY_PARAM_TOL}); metrics "
-            + ", ".join(f"{k} {m0[k]:.6g} by {e:.2e}" for k, e in metric_err.items())
-            + f" (limit {RLLIB_PARITY_METRIC_TOL} relative or "
-            f"{metric_atol:.3e} absolute)")
         bad = [k for k, e in metric_err.items()
                if e > max(RLLIB_PARITY_METRIC_TOL * abs(m0[k]), metric_atol)]
+        if len(td0):
+            metric_err["td_errors"] = float(np.abs(td0 - td1).max())
+            if (np.abs(td0 - td1) > np.maximum(RLLIB_PARITY_METRIC_TOL * np.abs(td0),
+                                               metric_atol)).any():
+                bad.append("td_errors")
+        log(f"[rllib-parity] {name} {devices[0]} vs {devices[1]}, "
+            f"{RLLIB_PARITY_STEPS} steps: gradients max rel "
+            f"{grad_err:.3e} over {len(g0[0]) - len(zero)} leaves a step "
+            f"({len(zero)} unreached, 0 on both; limit "
+            f"{RLLIB_PARITY_GRAD_TOL}); params{' and targets' if len(w0) > len(g0[0]) else ''} "
+            f"max abs {param_err:.3e} (limit {RLLIB_PARITY_PARAM_TOL}); metrics "
+            + ", ".join(f"{k} {m0[k]:.6g} by {metric_err[k]:.2e}" for k in m0)
+            + (f", td_errors ({len(td0)}) by {metric_err['td_errors']:.2e}"
+               if len(td0) else "")
+            + f" (limit {RLLIB_PARITY_METRIC_TOL} relative or "
+            f"{metric_atol:.3e} absolute)")
         if (grad_err > RLLIB_PARITY_GRAD_TOL or param_err > RLLIB_PARITY_PARAM_TOL
                 or bad):
             fail(f"[rllib-parity] {name}: the update on {devices[0]} and on "
@@ -2998,6 +3271,9 @@ def rllib_phase(card: str, profile: bool = False, device="cuda") -> dict:
     out = {}
     for tag, fn in (("rllib-ppo", lambda: rllib_ppo(card, device, profile)),
                     ("rllib-impala", lambda: rllib_impala(card, device)),
+                    ("rllib-dqn", lambda: rllib_dqn(card, device, profile)),
+                    ("rllib-sac", lambda: rllib_sac(card, device, profile)),
+                    ("rllib-bc", lambda: rllib_bc(card, device)),
                     ("rllib-ma", lambda: rllib_ma(device)),
                     ("rllib-parity", lambda: rllib_parity((device, "cpu")))):
         free_device_memory()

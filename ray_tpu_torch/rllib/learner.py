@@ -9,6 +9,14 @@ optax.chain(clip_by_global_norm(grad_clip), adam(lr)): the port's
 ClippedAdamW with no weight decay, b1 0.9, b2 0.999, eps 1e-8, f32
 moments and a constant learning rate.
 
+TreeLearner holds what every learner shares: a parameter tree on the
+device (and a target tree, where the algorithm has a target network),
+the optimizer over its leaves in JAX's sorted-key order, one optimizer
+step from a loss, and the weight and state plumbing. TorchLearner adds
+the reference's multi-epoch minibatch loop (PPO, IMPALA); the
+off-policy and offline learners (algorithms/dqn.py, sac.py, bc.py) take
+one step on the whole batch an update, in its given order.
+
 The reference's PPO update is one jitted lax.scan over epochs and
 shuffled minibatches, which meets the host once. Here the same loop runs
 eagerly, each minibatch step a few hundred small kernels, and still meets
@@ -49,20 +57,119 @@ from ray_tpu_torch.rllib.sample_batch import SampleBatch, columns_to
 from ray_tpu_torch.rllib.vtrace import vtrace_from_logps
 from ray_tpu_torch.train.train_step import ClippedAdamW
 
-REMOTE_REFUSAL = (
+PLANES_REFUSAL = (
     "waits for the runtime planes the PyTorch port has not copied yet "
-    "(ROADMAP.md Queue A item 5); the port runs RLlib inline: "
+    "(ROADMAP.md Queue A item 5)"
+)
+REMOTE_REFUSAL = (
+    f"{PLANES_REFUSAL}; the port runs RLlib inline: "
     "num_rollout_workers=0 and learner_mode='local'"
 )
 
 
-class TorchLearner:
+class TreeLearner:
+    """A parameter tree on `device` and the reference's optimizer over its
+    leaves (module docstring), with the weight and state plumbing every
+    learner shares. A subclass builds the tree, and `target` where it has
+    a target network (a second tree, which the optimizer does not step),
+    and takes each optimizer step with `_apply_gradients`."""
+
+    target = None
+
+    def __init__(self, params, lr: float, grad_clip: float, device):
+        self.device = torch.device(device)
+        self.params = params
+        self._leaves: List[torch.Tensor] = tree_leaves(params)
+        for p in self._leaves:
+            p.requires_grad_(True)
+        self._optimizer = ClippedAdamW(
+            self._leaves, schedule=lambda count: lr, weight_decay=0.0,
+            b1=0.9, b2=0.999, grad_clip=grad_clip, eps=1e-8,
+            moment_dtype=torch.float32,
+        )
+        for p in self._leaves:  # optax's init: zero moments, count 0
+            self._optimizer.state[p] = {"mu": torch.zeros_like(p),
+                                        "nu": torch.zeros_like(p)}
+        self._step = 0
+
+    def _apply_gradients(self, loss: torch.Tensor) -> None:
+        """One optimizer step down the gradient of `loss`. A leaf the loss
+        does not reach (a head the algorithm does not use) takes a zero
+        gradient, as it does under optax, whose Adam moments decay over
+        it; ClippedAdamW would skip a leaf whose gradient is None."""
+        grads = torch.autograd.grad(loss, self._leaves, materialize_grads=True)
+        for p, g in zip(self._leaves, grads):
+            p.grad = g
+        self._optimizer.step()
+        self._step += 1
+
+    # -- state -------------------------------------------------------------- #
+    def get_weights(self):
+        """The parameters as a tree of numpy arrays on the host."""
+        return params_to_numpy(self.params)
+
+    @torch.no_grad()
+    def set_weights(self, params) -> None:
+        copy_into(self._leaves, params)
+
+    def get_state(self):
+        """Parameters, target (where there is one), Adam's moments and
+        count and the step, as numpy arrays and integers on the host:
+        nothing in it depends on the device, so a state saved on the card
+        restores on the CPU and the other way round."""
+        state = self._optimizer.state
+        out = {
+            "params": params_to_numpy(self.params),
+            "opt_state": {
+                "mu": params_to_numpy(tree_map(lambda p: state[p]["mu"], self.params)),
+                "nu": params_to_numpy(tree_map(lambda p: state[p]["nu"], self.params)),
+                "count": self._optimizer.count,
+            },
+            "step": self._step,
+        }
+        if self.target is not None:
+            out["target"] = params_to_numpy(self.target)
+        return out
+
+    @torch.no_grad()
+    def set_state(self, state) -> None:
+        """Puts a get_state() tree back, on the learner's device."""
+        self.set_trees(state)
+        opt = state["opt_state"]
+        for name in ("mu", "nu"):
+            copy_into([self._optimizer.state[p][name] for p in self._leaves],
+                      opt[name])
+        self._optimizer.count = int(opt["count"])
+        self._step = int(state["step"])
+
+    @torch.no_grad()
+    def set_trees(self, trees) -> None:
+        """The parameters, and the target where the learner has one, from
+        trees of numpy arrays or tensors with the reference learner's
+        layout ({"params": ..., "target": ...}, as jax.device_get of its
+        state gives them), copied onto the learner's device."""
+        copy_into(self._leaves, trees["params"])
+        if self.target is not None:
+            copy_into(tree_leaves(self.target), trees["target"])
+
+
+def copy_into(dst: List[torch.Tensor], src_tree) -> None:
+    """A tree of numpy arrays or tensors copied, leaf by leaf in
+    tree_leaves' order, into the tensors `dst` (on their device)."""
+    src = tree_leaves(src_tree)
+    if len(src) != len(dst):
+        raise ValueError(f"a tree of {len(src)} leaves for {len(dst)}")
+    for d, s in zip(dst, src):
+        d.copy_(host_tensor(s))
+
+
+class TorchLearner(TreeLearner):
     """Holds the parameters and optimizer state on `device` and runs the
     multi-epoch update.
 
     Subclasses define `loss_fn(params, minibatch) -> (loss, aux)` as a
-    function of its arguments; this base builds the optimizer, the update
-    loop and the weight/state plumbing.
+    function of its arguments; this class and TreeLearner build the
+    optimizer, the update loop and the weight/state plumbing.
     """
 
     def __init__(
@@ -81,25 +188,12 @@ class TorchLearner:
         self.num_actions = num_actions
         self.num_epochs = num_epochs
         self.minibatch_size = minibatch_size
-        self.device = torch.device(device)
         # drawn on the host, so a learner on the card and one on the CPU
         # start from the same weights
-        self.params = mlp_actor_critic_init(
-            torch.Generator().manual_seed(seed), obs_dim, num_actions,
-            hiddens, self.device,
-        )
-        self._leaves: List[torch.Tensor] = tree_leaves(self.params)
-        for p in self._leaves:
-            p.requires_grad_(True)
-        self._optimizer = ClippedAdamW(
-            self._leaves, schedule=lambda count: lr, weight_decay=0.0,
-            b1=0.9, b2=0.999, grad_clip=grad_clip, eps=1e-8,
-            moment_dtype=torch.float32,
-        )
-        for p in self._leaves:  # optax's init: zero moments, count 0
-            self._optimizer.state[p] = {"mu": torch.zeros_like(p),
-                                        "nu": torch.zeros_like(p)}
-        self._step = 0
+        super().__init__(
+            mlp_actor_critic_init(torch.Generator().manual_seed(seed), obs_dim,
+                                  num_actions, hiddens, device),
+            lr, grad_clip, device)
         self._perm_seed, self._perm_draws = seed + 1, 0
         self._metric_keys: List[str] = []
 
@@ -112,11 +206,7 @@ class TorchLearner:
         """One optimizer step on `minibatch` → its metrics, stacked in
         `_metric_keys`' order, on the device."""
         loss, aux = self.loss_fn(self.params, minibatch)
-        grads = torch.autograd.grad(loss, self._leaves)
-        for p, g in zip(self._leaves, grads):
-            p.grad = g
-        self._optimizer.step()
-        self._step += 1
+        self._apply_gradients(loss)
         self._metric_keys = [*aux, "total_loss", "grad_norm"]
         return torch.stack([*(v.detach() for v in aux.values()),
                             loss.detach(), self._optimizer.grad_norm])
@@ -155,47 +245,43 @@ class TorchLearner:
         return batch.as_torch(self.device)
 
     # -- state -------------------------------------------------------------- #
-    def get_weights(self):
-        """The parameters as a tree of numpy arrays on the host."""
-        return params_to_numpy(self.params)
-
-    @torch.no_grad()
-    def set_weights(self, params) -> None:
-        for dst, src in zip(self._leaves, tree_leaves(params)):
-            dst.copy_(host_tensor(src))
-
     def get_state(self):
-        """Parameters, Adam's moments and count, the step and where the
-        permutations have got to (their seed and the number drawn), on the
-        host. (The reference's state leaves its rng out, so its restored
-        learner draws other permutations than the saved one would have.)
-        Nothing in it depends on the device: a state saved on the card
-        restores on the CPU and the other way round, where it draws that
-        device's permutations from the same seeds."""
-        state = self._optimizer.state
-        return {
-            "params": self.get_weights(),
-            "opt_state": {
-                "mu": params_to_numpy(tree_map(lambda p: state[p]["mu"], self.params)),
-                "nu": params_to_numpy(tree_map(lambda p: state[p]["nu"], self.params)),
-                "count": self._optimizer.count,
-            },
-            "step": self._step,
-            "perm": {"seed": self._perm_seed, "draws": self._perm_draws},
-        }
+        """TreeLearner's state and where the permutations have got to
+        (their seed and the number drawn: two integers, whatever the
+        device, so a restored learner draws that device's permutations
+        from the same seeds). (The reference's state leaves its rng out,
+        so its restored learner draws other permutations than the saved
+        one would have.)"""
+        return {**super().get_state(),
+                "perm": {"seed": self._perm_seed, "draws": self._perm_draws}}
 
     @torch.no_grad()
     def set_state(self, state) -> None:
-        """Puts a get_state() tree back, on the learner's device."""
-        self.set_weights(state["params"])
-        opt = state["opt_state"]
-        for name in ("mu", "nu"):
-            for p, src in zip(self._leaves, tree_leaves(opt[name])):
-                self._optimizer.state[p][name].copy_(host_tensor(src))
-        self._optimizer.count = int(opt["count"])
-        self._step = int(state["step"])
+        super().set_state(state)
         self._perm_seed = int(state["perm"]["seed"])
         self._perm_draws = int(state["perm"]["draws"])
+
+
+def transition_columns(batch: SampleBatch, device) -> Dict[str, torch.Tensor]:
+    """A replay batch's columns as the off-policy learners (DQN, SAC) take
+    them, on `device`: f32 obs, next_obs and rewards, int64 actions, the
+    PER weights (1 without them) and done = clip(terminated + truncated,
+    0, 1), computed on the host as the reference does. A truncation counts
+    as terminal, so neither bootstraps past a time limit: a quirk of the
+    reference, kept (ROADMAP.md Queue C)."""
+    dones = (
+        np.asarray(batch[SampleBatch.TERMINATEDS], np.float32)
+        + np.asarray(batch[SampleBatch.TRUNCATEDS], np.float32)
+    ).clip(0, 1)
+    return columns_to({
+        "obs": np.asarray(batch[SampleBatch.OBS], np.float32),
+        "actions": np.asarray(batch[SampleBatch.ACTIONS], np.int64),
+        "rewards": np.asarray(batch[SampleBatch.REWARDS], np.float32),
+        "next_obs": np.asarray(batch[SampleBatch.NEXT_OBS], np.float32),
+        "dones": dones,
+        "weights": np.asarray(
+            batch.get("weights", np.ones(len(batch), np.float32)), np.float32),
+    }, device)
 
 
 class PPOLearner(TorchLearner):

@@ -171,6 +171,11 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
             "ray_tpu_torch/rllib/learner.py",
             "ray_tpu_torch/rllib/models.py",
             "ray_tpu_torch/rllib/algorithm.py",
+            "ray_tpu_torch/rllib/replay_buffers.py",
+            "ray_tpu_torch/rllib/offline.py",
+            "ray_tpu_torch/rllib/algorithms/dqn.py",
+            "ray_tpu_torch/rllib/algorithms/sac.py",
+            "ray_tpu_torch/rllib/algorithms/bc.py",
             "ray_tpu_torch/tune/trainable.py"} <= names
     bad = [
         (str(f.relative_to(REPO)), name)

@@ -637,6 +637,20 @@ def small_rllib(smoke, monkeypatch):
     monkeypatch.setattr(smoke, "RLLIB_MA_TRAINING", dict(
         train_batch_size=128, minibatch_size=64, num_epochs=1))
     monkeypatch.setattr(smoke, "RLLIB_PONG_ITERS", 1)
+    monkeypatch.setattr(smoke, "RLLIB_OFFPOLICY_ENVS", 4)
+    monkeypatch.setattr(smoke, "RLLIB_DQN_FRAGMENT", 8)
+    monkeypatch.setattr(smoke, "RLLIB_SAC_FRAGMENT", 8)
+    monkeypatch.setattr(smoke, "RLLIB_BC_FRAGMENT", 16)
+    monkeypatch.setattr(smoke, "RLLIB_DQN_TRAINING", dict(
+        lr=1e-3, train_batch_size=32, learning_starts=32, target_update_freq=4,
+        train_intensity=2, epsilon_timesteps=200))
+    monkeypatch.setattr(smoke, "RLLIB_SAC_TRAINING", dict(
+        lr=3e-3, train_batch_size=32, learning_starts=32, train_intensity=2))
+    monkeypatch.setattr(smoke, "RLLIB_BC_TRAINING", dict(
+        lr=3e-3, train_batch_size=32, train_intensity=2))
+    monkeypatch.setattr(smoke, "RLLIB_BC_EXPERT_EPISODES", 2)
+    monkeypatch.setattr(smoke, "RLLIB_PARITY_ROWS", 64)
+    monkeypatch.setattr(smoke, "RLLIB_LOG_EVERY", 1)
     return smoke
 
 
@@ -648,19 +662,32 @@ def test_rllib_phases_on_the_cpu(small_rllib, capsys, monkeypatch):
     one device against itself is exact."""
     smoke = small_rllib
     monkeypatch.setattr(smoke, "RLLIB_TARGET_REWARD", 12.0)
+    monkeypatch.setattr(smoke, "RLLIB_BC_TARGET_REWARD", 12.0)
     monkeypatch.setattr(smoke, "RLLIB_MIN_EPISODES", 5)
     out = smoke.rllib_phase("card", device="cpu")
     assert out["rllib-ppo"]["env_steps"] == 256
     assert out["rllib-impala"]["cartpole_iterations"] >= 1
+    for tag in ("rllib-dqn", "rllib-sac", "rllib-bc"):
+        assert out[tag]["best"] >= 12.0 and out[tag]["updates"] >= 2, tag
+        assert out[tag]["updates_per_s"] > 0 and out[tag]["sample_ms"] > 0, tag
+    assert out["rllib-dqn"]["env_steps"] == 32 * out["rllib-dqn"]["iterations"]
+    assert out["rllib-bc"]["env_steps"] == 0  # evaluation steps are not trained on
+    assert out["rllib-bc"]["expert_mean_return"] == 500.0
     assert set(out["rllib-ma"]) == smoke.RLLIB_MA_KEYS
+    assert set(out["rllib-parity"]) == {"ppo", "impala", "dqn", "sac", "bc"}
     assert all(v == {"grad_max_rel": 0.0, "param_max_abs": 0.0,
                      "metric_max_abs": 0.0}
                for v in out["rllib-parity"].values())
     text = capsys.readouterr().out
-    for tag in ("rllib-ppo", "rllib-impala", "rllib-impala-pong", "rllib-ma",
-                "rllib-parity"):
+    for tag in ("rllib-ppo", "rllib-impala", "rllib-impala-pong", "rllib-dqn",
+                "rllib-sac", "rllib-bc", "rllib-ma", "rllib-parity"):
         assert f"[{tag}]" in text
+        assert f"[{tag}] phase took" in text or tag == "rllib-impala-pong"
     assert "minibatch steps" in text and "env_steps_per_sec" in text
+    assert "[rllib-dqn] placement: learner 12 parameters, 12 targets, 24 moments on cpu" in text
+    assert "[rllib-sac] placement: learner 37 parameters, 24 targets, 74 moments on cpu" in text
+    assert re.search(r"\[rllib-parity\] dqn cpu vs cpu.*6 unreached.*params and "
+                     r"targets.*td_errors \(128\)", text)
 
 
 def test_rllib_phases_fail_where_they_should(small_rllib, monkeypatch):
@@ -677,17 +704,31 @@ def test_rllib_phases_fail_where_they_should(small_rllib, monkeypatch):
             .resources(learner_device="cpu").build())
     with pytest.raises(SystemExit, match="not cuda"):
         smoke.rllib_placement("rllib-ppo", algo, "cuda")
+    monkeypatch.setattr(smoke, "RLLIB_DQN_MAX_ITERS", 2)
+    with pytest.raises(SystemExit, match=r"\[rllib-dqn\] best episode_reward_mean"):
+        smoke.rllib_dqn("card", device="cpu")
+    from ray_tpu_torch.rllib.algorithms import SACConfig
+
+    algo = (SACConfig().environment("CartPole-v1", num_envs_per_worker=2)
+            .resources(learner_device="cpu").build())
+    # a target left on another device than the learner's fails too
+    algo.learner_group._learner.target["q2"]["pi"][0]["w"] = torch.zeros(
+        4, 64, device="meta")
+    with pytest.raises(SystemExit, match="not cpu"):
+        smoke.rllib_placement("rllib-sac", algo, "cpu")
 
 
-@pytest.mark.parametrize("algo", ["ppo", "impala"])
+@pytest.mark.parametrize("algo", ["ppo", "impala", "dqn", "sac", "bc"])
 def test_rllib_parity_fails_on_a_gradient_off_by_a_factor(small_rllib, monkeypatch,
                                                           capsys, algo):
     """A learner whose gradients are all 1.001 times the other's takes the
     same first Adam step (m/sqrt(v) is scale-free) yet fails [rllib-parity]:
     it holds every leaf's gradient, not only the parameters."""
     from ray_tpu_torch.rllib import learner as tlearner
+    from ray_tpu_torch.rllib.algorithms import bc, dqn, sac
 
-    cls = {"ppo": tlearner.PPOLearner, "impala": tlearner.IMPALALearner}[algo]
+    cls = {"ppo": tlearner.PPOLearner, "impala": tlearner.IMPALALearner,
+           "dqn": dqn.DQNLearner, "sac": sac.SACLearner, "bc": bc.BCLearner}[algo]
     made, loss_fn = [], cls.loss_fn
 
     def scaled(self, params, mb):
@@ -705,3 +746,24 @@ def test_rllib_parity_fails_on_a_gradient_off_by_a_factor(small_rllib, monkeypat
     row = re.search(rf"\[rllib-parity\] {algo} cpu vs cpu.*gradients max rel (\S+)",
                     capsys.readouterr().out)
     assert float(row.group(1)) > small_rllib.RLLIB_PARITY_GRAD_TOL
+
+
+def test_rllib_parity_fails_on_a_dqn_target_that_aliases_the_parameters(
+        small_rllib, monkeypatch, capsys):
+    """The second device's DQN learner keeps its target as the live
+    parameters (no copy): its second update bootstraps from the parameters
+    after the first step, not from the initial target, and [rllib-parity]
+    fails."""
+    from ray_tpu_torch.rllib.algorithms import dqn
+
+    made, init = [], dqn.DQNLearner.__init__
+
+    def aliasing_init(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+        if len(made) == 2:
+            self.target = self.params
+    monkeypatch.setattr(dqn.DQNLearner, "__init__", aliasing_init)
+    with pytest.raises(SystemExit, match=r"\[rllib-parity\] dqn: .*differ"):
+        small_rllib.rllib_parity(("cpu", "cpu"))
+    assert "[rllib-parity] sac" not in capsys.readouterr().out

@@ -10,10 +10,12 @@ on device="cpu".
   the reference's env gives its obs, rewards and flags, bitwise, for the
   "gae", "vtrace" and "transitions" batches, whose columns are the
   reference runner's.
-- PPO, multi-agent PPO and IMPALA build().train() return the reference's
-  result keys; save() then restore() into a fresh algorithm gives
-  identical weights and an identical next update; the remote topologies
-  raise NotImplementedError naming ROADMAP.md Queue A item 5.
+- PPO, multi-agent PPO, IMPALA, DQN, SAC and BC build().train() return
+  the reference's result keys; save() then restore() into a fresh
+  algorithm gives identical weights and an identical next update (DQN's
+  and SAC's replay buffer and env-step count are not in the checkpoint,
+  as in the reference); the remote topologies raise NotImplementedError
+  naming ROADMAP.md Queue A item 5; the learner defaults to the card.
 """
 
 import jax
@@ -23,15 +25,21 @@ import torch
 
 from ray_tpu.rllib import models as jmodels
 from ray_tpu.rllib import postprocessing as jpost
+from ray_tpu.rllib.algorithms import BCConfig as JBCConfig
+from ray_tpu.rllib.algorithms import DQNConfig as JDQNConfig
 from ray_tpu.rllib.algorithms import IMPALAConfig as JIMPALAConfig
 from ray_tpu.rllib.algorithms import PPOConfig as JPPOConfig
+from ray_tpu.rllib.algorithms import SACConfig as JSACConfig
 from ray_tpu.rllib.env import vector_env as jvec
 from ray_tpu.rllib.env_runner import EnvRunner as JEnvRunner
 from ray_tpu.rllib.multi_agent_runner import MultiAgentEnvRunner as JMARunner
-from ray_tpu_torch.rllib.algorithms import IMPALAConfig, PPOConfig
+from ray_tpu_torch.rllib.algorithms import (
+    BCConfig, DQNConfig, IMPALAConfig, PPOConfig, SACConfig,
+)
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.models import tree_leaves
 from ray_tpu_torch.rllib.multi_agent_runner import MultiAgentEnvRunner
+from ray_tpu_torch.rllib.offline import JsonWriter
 
 MODEL_TOL = dict(rtol=1e-6, atol=1e-6)
 T, N = 48, 4
@@ -228,6 +236,139 @@ def test_learner_defaults_to_the_card():
     otherwise; without a card, building it raises (nothing carries on on
     the CPU)."""
     cfg = ppo(PPOConfig)
+    assert cfg.learner_device == "cuda"
+    if torch.cuda.is_available():
+        algo = cfg.build()
+        assert algo.learner_group._learner.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            cfg.build()
+
+
+# -- DQN, SAC, BC ------------------------------------------------------------ #
+# Small sizes: 4 envs, fragments of 32 (128 rows an iteration, long enough
+# for a random CartPole policy to end episodes), learning from the first
+# iteration on, so one train() runs the updates.
+
+def dqn(config_cls, **resources):
+    return (config_cls()
+            .environment("CartPole-v1", num_envs_per_worker=N)
+            .rollouts(rollout_fragment_length=32)
+            .training(train_batch_size=32, learning_starts=32, train_intensity=2,
+                      target_update_freq=3)
+            .resources(**resources)
+            .debugging(seed=0))
+
+
+def sac(config_cls, **resources):
+    return (config_cls()
+            .environment("CartPole-v1", num_envs_per_worker=N)
+            .rollouts(rollout_fragment_length=32)
+            .training(train_batch_size=32, learning_starts=32, train_intensity=2)
+            .resources(**resources)
+            .debugging(seed=0))
+
+
+@pytest.fixture(scope="module")
+def expert_path(tmp_path_factory):
+    """Logged CartPole experience: two fragments of a random policy."""
+    path = tmp_path_factory.mktemp("bc")
+    w = JsonWriter(str(path))
+    runner = EnvRunner("CartPole-v1", num_envs=N, seed=1)
+    for _ in range(2):
+        batch, _ = runner.sample(16)
+        w.write({k: batch[k] for k in ("obs", "actions", "rewards")})
+    w.close()
+    return str(path)
+
+
+def bc(config_cls, path, **resources):
+    return (config_cls()
+            .offline_data(path)
+            .environment("CartPole-v1", num_envs_per_worker=N)
+            .rollouts(rollout_fragment_length=16)
+            .training(train_batch_size=32, train_intensity=2)
+            .resources(**resources)
+            .debugging(seed=0))
+
+
+OFF_POLICY = {"dqn": (dqn, DQNConfig, JDQNConfig), "sac": (sac, SACConfig, JSACConfig)}
+
+
+@pytest.mark.parametrize("algo", ["dqn", "sac", "bc"])
+def test_offpolicy_and_offline_train_returns_the_reference_result_keys(algo, expert_path):
+    if algo == "bc":
+        got_algo = bc(BCConfig, expert_path, learner_device="cpu").build()
+        ref = bc(JBCConfig, expert_path).build()
+    else:
+        make, cfg, jcfg = OFF_POLICY[algo]
+        got_algo, ref = make(cfg, learner_device="cpu").build(), make(jcfg).build()
+    got, want = got_algo.train(), ref.train()
+    assert set(got) == set(want)
+    assert "loss" in got
+    if algo == "bc":
+        assert got["dataset_size"] == want["dataset_size"] == 2 * 16 * N
+    else:
+        assert got["timesteps_this_iter"] == want["timesteps_this_iter"] == 128
+        assert got["buffer_size"] == want["buffer_size"] == 128
+        assert got["num_updates"] == want["num_updates"] == 2
+    if algo == "dqn":
+        assert got["epsilon"] == want["epsilon"] == 1.0
+        assert 0.0 < got_algo._epsilon() < 1.0
+    got_algo.stop()
+
+
+@pytest.mark.parametrize("algo", ["dqn", "sac", "bc"])
+def test_offpolicy_save_restore_gives_identical_weights_and_next_update(algo, expert_path,
+                                                                     tmp_path):
+    def build(seed):
+        if algo == "bc":
+            return bc(BCConfig, expert_path, learner_device="cpu").debugging(
+                seed=seed).build()
+        make, cfg, _ = OFF_POLICY[algo]
+        return make(cfg, learner_device="cpu").debugging(seed=seed).build()
+    trained = build(0)
+    for _ in range(2):
+        trained.train()
+    ckpt = trained.save(str(tmp_path / "ck"))
+    fresh = build(1)
+    fresh.restore(ckpt)
+    assert fresh.iteration == 2
+    assert all(np.array_equal(a, b) for a, b in zip(
+        tree_leaves(trained.get_weights()), tree_leaves(fresh.get_weights())))
+    a, b = trained.learner_group, fresh.learner_group
+    for x, y in zip(tree_leaves(a.get_state()), tree_leaves(b.get_state())):
+        assert np.array_equal(x, y)
+    batch = trained.buffer.sample(32)
+    m, n = a.update(batch), b.update(batch)
+    assert m.keys() == n.keys() and all(np.array_equal(m[k], n[k]) for k in m)
+    assert all(np.array_equal(x, y) for x, y in zip(
+        tree_leaves(a.get_state()), tree_leaves(b.get_state())))
+    if algo != "bc":
+        # the reference's checkpoint holds the learner only: the restored
+        # algorithm refills its buffer and, for DQN, starts again at
+        # epsilon_start (ROADMAP.md Queue C)
+        assert len(fresh.buffer) == 0 and fresh._env_steps == 0
+        assert len(trained.buffer) == 256
+    if algo == "dqn":
+        assert fresh._epsilon() == 1.0 > trained._epsilon()
+
+
+@pytest.mark.parametrize("change,match", [
+    (lambda c: c.rollouts(num_rollout_workers=2), "EnvRunner actors"),
+    (lambda c: c.resources(learner_mode="remote"), "learner_mode='remote'"),
+])
+@pytest.mark.parametrize("algo", ["dqn", "sac"])
+def test_offpolicy_remote_topologies_are_refused(algo, change, match):
+    make, cfg, _ = OFF_POLICY[algo]
+    with pytest.raises(NotImplementedError, match=f"{match}.*Queue A item 5"):
+        change(make(cfg, learner_device="cpu")).build()
+
+
+@pytest.mark.parametrize("algo", ["dqn", "sac", "bc"])
+def test_offpolicy_learner_defaults_to_the_card(algo, expert_path):
+    cfg = (bc(BCConfig, expert_path) if algo == "bc"
+           else OFF_POLICY[algo][0](OFF_POLICY[algo][1]))
     assert cfg.learner_device == "cuda"
     if torch.cuda.is_available():
         algo = cfg.build()
