@@ -190,7 +190,32 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    parameters and targets within 1e-6 absolute, metrics and |TD| errors
    within 1e-5 relative or 1e-6 times the batch's mean |term| absolute
    (RLLIB_PARITY_*). Each [rllib-*] phase prints its seconds.
-21. Print the kernels line (each kernel's numbers by model path), the card's
+21. [core]: the runtime's in-process mode (ray_tpu_torch.init(local_mode=
+   True)): cluster_resources() reports GPU and GPU-<kind> = the card count;
+   a @remote(num_gpus=1) task takes q, k, v and do (bf16 [8, 12, 1024, 64],
+   GPT-2-124M's serving shape) as put refs and runs flash_attention forward
+   and backward on its own thread: its o bitwise equal to the same call on
+   the main thread, its gradients within the backward kernel's limits (dq's
+   sums run in a run-dependent order), one launch of each kernel; get(put(t))
+   is t for a CUDA tensor; serialize of a 256 MiB CUDA tensor gives one
+   out-of-band buffer of exactly its bytes, and deserialize a CPU tensor
+   equal to its .cpu(), timed (host clock, synchronized).
+22. [trainer]: Train on that runtime: TorchTrainer(trainer_loop,
+   scaling_config=ScalingConfig(num_workers=1, use_gpu=True)).fit() trains
+   GPT-2-124M (remat off) at B 24 x 1024 on the smoke's repeated synthetic
+   batch, the loop reporting loss, grad norm, step and step ms every step
+   and a Checkpoint.from_torch of params, ClippedAdamW's state_dict and step
+   at its end: run A 4 steps; B resumed from A's checkpoint to step 8; C, C2
+   and C3 8 straight steps; D under FailureConfig(max_failures=1), its first
+   attempt checkpointed at step 2 and failing after step 3, retried from
+   that checkpoint. Each fit ends without error, one metrics row a report,
+   finite losses; C's loss falls; A's checkpoint restored by to_torch into
+   a fresh state on the card equals A's final state bitwise (params,
+   moments, step, count); B's losses within resume_limit of C's; each
+   kernel 12 launches a step of all the runs (counts set to 0 just before
+   the first fit, read just after the last). Prints each fit's seconds and
+   peak memory, and the median steady step ms beside [train]'s.
+23. Print the kernels line (each kernel's numbers by model path), the card's
    name and power limit, and last the result line {"ok": true, ...}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -212,6 +237,7 @@ import time
 from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -338,6 +364,28 @@ PIPELINE_STAGES, PIPELINE_MICROBATCHES = 4, 4
 LLAMA_REQUESTS, LLAMA_REQUEST_BATCH = 4, 2
 LLAMA_TRAIN_BATCH, LLAMA_COMPARE_BATCH = 8, 1
 LLAMA_GRAD_LAYERS = 2
+# [core]: the remote task's attention at GPT-2-124M's serving shape, and the
+# serialization hook on a 256 MiB CUDA tensor
+CORE_SHAPE = (REQUEST_BATCH, 12, 1024, 64)
+SERIALIZE_BYTES = 256 * 2 ** 20
+# [trainer]: GPT-2-124M at TRAIN_BATCH through TorchTrainer: run A to step
+# TRAINER_A, B from A's checkpoint to TRAINER_UNTIL, C, C2 and C3 straight
+# to it, D checkpointed at TRAINER_D_CKPT and failing after its step
+# TRAINER_D_FAIL on its first attempt, then retried from that checkpoint
+TRAINER_A, TRAINER_UNTIL = 4, 8
+TRAINER_D_CKPT, TRAINER_D_FAIL = 2, 3
+# B's losses against C's at the same steps: B resumes from a checkpoint that
+# restores A's state bitwise (checked), so B is C but for the run-dependent
+# order of dq's sums (ROADMAP Queue C item 2), the noise that also sets the
+# straight runs apart. The limit is four times the largest distance between
+# two of C, C2 and C3 over those steps, and at least LOSS_TOL (the loss
+# distance the smoke allows between two attention paths). It grows with the
+# step: on an H100 the runs were up to 2.7e-4 apart at step 5 and 1.2e-3 by
+# step 8; B once sat 1.6e-3 from C there against C 4.7e-4 from C2, too close
+# to a limit from one pair, hence three runs. A resume that lost the
+# optimizer's count or moments would move each resumed loss by about a
+# step's change (0.02 to 0.13 between steps 4 and 8).
+TRAINER_RESUME_FACTOR = 4
 
 
 def fail(msg: str) -> None:
@@ -859,6 +907,14 @@ def backward_cases(gen):
     log(f"[kernel-bwd] offset chunks summed vs full backward: {json.dumps(sums)}")
     if not all(e <= GRAD_REL_TOL for e in sums.values()):
         fail(f"offset chunks do not sum to the full backward: {sums}")
+
+    # the [core] task's backward: GPT-2-124M's serving shape
+    qc, kc, vc, dc = rand(*CORE_SHAPE)
+    oc, lsec = forward(qc, kc, vc)
+    rows["core"], _ = check(f"causal B{REQUEST_BATCH} H12 S1024 hd64 ([core] "
+                            "task's shape)", qc, kc, vc, oc, lsec, dc,
+                            library=sdpa_backward(qc, kc, vc, dc, True))
+    del qc, kc, vc, dc, oc, lsec
 
     q8, k8, v8, d8 = rand(8, 12, 1024, 128)
     o8, lse8 = forward(q8, k8, v8)
@@ -1819,7 +1875,7 @@ def train_path(card: str, profile: bool, tag: str, name: str, model,
     executes and from the JAX formula (flops_per_token; the two differ only
     with MoE). Then the loss and gradients of one compare_batch batch are
     checked against the plain attention path (loss_tol, grad_tol). Returns
-    the launches."""
+    the launches and the median step ms."""
     from ray_tpu_torch.train.train_step import default_optimizer, synthetic_batch
 
     t0 = time.perf_counter()
@@ -1879,7 +1935,7 @@ def train_path(card: str, profile: bool, tag: str, name: str, model,
     compare_gradients(tag, model, cfg, state["params"],
                       synthetic_batch(cfg, compare_batch, seed=1), grad_tol,
                       loss_tol)
-    return launches
+    return {"launches": launches, "step_ms_median": step_s * 1e3}
 
 
 def llama_hd128_gradients() -> None:
@@ -3283,6 +3339,366 @@ def rllib_phase(card: str, profile: bool = False, device="cuda") -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# [core] and [trainer]: the runtime's in-process mode and Train on the card
+# --------------------------------------------------------------------------- #
+
+def core_phase(card: str) -> dict:
+    """ray_tpu_torch.init(local_mode=True) on the card: the GPU resources; a
+    remote task (num_gpus=1) that takes q, k, v and do as put refs, runs
+    flash_attention forward and backward on its own thread and returns o
+    and the gradients, held to the same call on this thread (o bitwise,
+    the gradients within the backward kernel's limits: dq's sums run in a
+    run-dependent order), one launch of each kernel (counts set to 0 just
+    before a second call of the task and read just after it; both calls
+    timed); put/get of a CUDA tensor by reference; and the serialization
+    hook on a 256 MiB CUDA tensor: one
+    out-of-band buffer of exactly its bytes, deserialized to an equal CPU
+    tensor, timed (host clock, synchronized). Returns the task's launches."""
+    import ray_tpu_torch
+    from ray_tpu_torch.core.serialization import deserialize, serialize
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    ray_tpu_torch.init(local_mode=True)
+    try:
+        res = ray_tpu_torch.cluster_resources()
+        n = torch.cuda.device_count()
+        kind = "GPU-" + torch.cuda.get_device_name(0).lower().replace(" ", "-")
+        log(f"[core] cluster_resources: {json.dumps(res)}")
+        if res.get("GPU") != n or res.get(kind) != n:
+            fail(f"cluster_resources {res}: expected GPU and {kind} = {n}")
+
+        def attend(q, k, v, do):
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            o = flash_attention(*leaves, layout="bhsd")
+            return (o.detach(), *torch.autograd.grad(o, leaves, do))
+
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, do = (torch.randn(CORE_SHAPE, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16) for _ in range(4))
+        task = ray_tpu_torch.remote(num_gpus=1)(attend)
+        refs = [ray_tpu_torch.put(x) for x in (q, k, v, do)]
+        task_ms = []
+        for _ in range(2):      # the first call also pays the thread's first
+            torch.cuda.synchronize()   # CUDA work: both timed, the second counted
+            reset_launches()
+            t = time.perf_counter()
+            out = ray_tpu_torch.get(task.remote(*refs))
+            torch.cuda.synchronize()
+            task_ms.append((time.perf_counter() - t) * 1e3)
+        launches = launches_since_reset()
+        ref = attend(q, k, v, do)
+        if not all(x.is_cuda for x in out):
+            fail("the remote task's results are not on the card")
+        o_equal = torch.equal(out[0], ref[0])
+        grads = {g: {"rel_err": rel_err(a, b), "mean_rel_err": mean_rel_err(a, b)}
+                 for g, a, b in zip(("dq", "dk", "dv"), out[1:], ref[1:])}
+        log(f"[core] remote task flash_attention fwd+bwd {list(CORE_SHAPE)} "
+            f"bf16: launches {json.dumps(launches)}, o bitwise equal to this "
+            f"thread's call: {o_equal}, gradients {json.dumps(grads)}; "
+            f"ms from submit to get, first and second call: {task_ms}")
+        if launches != {"flash_fwd": 1, "flash_bwd": 1}:
+            fail(f"[core] task launched {launches}, expected one of each")
+        if not o_equal:
+            fail("[core] the remote task's o differs from this thread's")
+        for g, e in grads.items():
+            if e["rel_err"] > GRAD_REL_TOL or e["mean_rel_err"] > MEAN_REL_TOL:
+                fail(f"[core] the remote task's {g} differs from this thread's: {e}")
+        if ray_tpu_torch.get(ray_tpu_torch.put(q)) is not q:
+            fail("[core] get(put(t)) is not t for a CUDA tensor in local mode")
+
+        big = torch.randn(SERIALIZE_BYTES // 4, generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s = serialize(big)
+        ser_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = deserialize(s)
+        de_s = time.perf_counter() - t
+        sizes = [b.nbytes for b in s.buffers]
+        same = (back.device.type == "cpu" and back.dtype == big.dtype
+                and torch.equal(back, big.cpu()))
+        log("[core] serialize " + json.dumps(dict(
+            card=card, bytes=SERIALIZE_BYTES, buffers=sizes,
+            payload_bytes=len(s.payload), serialize_ms=ser_s * 1e3,
+            serialize_gb_per_s=SERIALIZE_BYTES / ser_s / 1e9,
+            deserialize_ms=de_s * 1e3, equal_to_cpu_copy=same)))
+        if sizes != [SERIALIZE_BYTES] or not same:
+            fail(f"[core] serialize of a CUDA tensor gave buffers {sizes} "
+                 f"(expected [{SERIALIZE_BYTES}]), equal to .cpu(): {same}")
+        del big, back, s
+    finally:
+        ray_tpu_torch.shutdown()
+    return launches
+
+
+def trainer_steps_taken(a: int = TRAINER_A, until: int = TRAINER_UNTIL,
+                        ckpt: int = TRAINER_D_CKPT,
+                        fail_after: int = TRAINER_D_FAIL) -> dict:
+    """The training steps each [trainer] run takes: A to `a`; B from A's
+    checkpoint to `until`; C, C2 and C3 straight to `until`; D
+    `fail_after` steps on its first attempt (the last one not reported),
+    then from its checkpoint at `ckpt` to `until`."""
+    return {"A": a, "B": until - a, "C": until, "C2": until, "C3": until,
+            "D": fail_after + until - ckpt}
+
+
+def trainer_launches(n_layer: int, taken: dict) -> int:
+    """Launches of each flash kernel over the [trainer] runs: one a layer a
+    step, forward and backward (no warm-up step outside the runs)."""
+    return n_layer * sum(taken.values())
+
+
+def resume_limit(straight: list, floor: float = LOSS_TOL,
+                 factor: float = TRAINER_RESUME_FACTOR) -> float:
+    """The limit on B's losses against C's at the same steps, from the
+    straight runs' losses there (a list of lists, C's first): `factor`
+    times the largest distance between two of them at one step, at least
+    `floor` (TRAINER_RESUME_FACTOR's comment)."""
+    spread = max(max(at) - min(at) for at in zip(*straight))
+    return max(floor, factor * spread)
+
+
+def train_tree(state: dict) -> dict:
+    """What the [trainer] loop checkpoints: the step's params, ClippedAdamW's
+    state_dict (bf16 moments, integer-keyed state, param_groups, count) and
+    the step."""
+    return {"params": state["params"],
+            "opt_state": state["opt_state"].state_dict(),
+            "step": state["step"]}
+
+
+def trainer_loop(config: dict) -> None:
+    """The [trainer] phase's train_loop_per_worker: GPT-2's train step at
+    config["cfg"] on config["device"] from a generator seeded 0, restored
+    from the session's checkpoint when there is one, on one repeated
+    synthetic batch of config["batch"] rows until step config["until"];
+    each step reports loss, grad_norm, step and
+    step_ms (host clock around a synchronized step), with a from_torch
+    checkpoint at the steps in config["ckpt_at"] and at the last. With
+    config["fail_after"], the first attempt raises after that step, before
+    reporting it. config["sink"] (the same dict in the driver: local mode
+    passes objects by reference) gets each attempt's start, its times (the
+    first step's start, each checkpoint's save and restore, the end) and,
+    with config["keep_final"], the final state."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train.train_step import (
+        default_optimizer, make_gpt2_train_step, synthetic_batch,
+    )
+
+    sink = config["sink"]
+    sink["attempts"] = sink.get("attempts", 0) + 1
+    cfg, device = config["cfg"], config["device"]
+    bundle = make_gpt2_train_step(
+        cfg, optimizer=default_optimizer(warmup=2, total_steps=1000),
+        generator=torch.Generator(device=device).manual_seed(0), device=device)
+    state = bundle.state
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        t = time.perf_counter()
+        tree = ckpt.to_torch(target=train_tree(state))
+        state["opt_state"].load_state_dict(tree["opt_state"])
+        state["step"] = tree["step"]
+        sync(device)
+        sink.setdefault("restore_s", []).append(time.perf_counter() - t)
+    sink.setdefault("starts", []).append(state["step"])
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in synthetic_batch(cfg, config["batch"], seed=0).items()}
+    sync(device)
+    sink.setdefault("t_first", time.perf_counter())
+    while state["step"] < config["until"]:
+        t = time.perf_counter()
+        state, m = bundle.step_fn(state, batch)
+        sync(device)
+        ms = (time.perf_counter() - t) * 1e3
+        step = state["step"]
+        if sink["attempts"] == 1 and step == config.get("fail_after"):
+            raise RuntimeError(f"injected failure after step {step}")
+        ckpt = None
+        if step in config.get("ckpt_at", ()) or step == config["until"]:
+            t = time.perf_counter()
+            ckpt = train.Checkpoint.from_torch(
+                train_tree(state),
+                path=os.path.join(config["root"], f"{config['name']}-{step}"))
+            sink.setdefault("save_s", []).append(time.perf_counter() - t)
+        train.report({"loss": m["loss"].item(),
+                      "grad_norm": m["grad_norm"].item(),
+                      "step": step, "step_ms": ms}, checkpoint=ckpt)
+    if config.get("keep_final"):
+        sink["final"] = {"params": state["params"], "opt": state["opt_state"],
+                         "step": state["step"]}
+    sink["t_done"] = time.perf_counter()
+
+
+def check_restore(cfg, checkpoint, final: dict, device) -> None:
+    """`checkpoint` (run A's) restored by to_torch into a fresh train state
+    on `device` against A's final state: every param, both moments (and
+    their dtype), the step and the optimizer's count bitwise."""
+    from ray_tpu_torch.train.train_step import (
+        default_optimizer, make_gpt2_train_step, named_leaves,
+    )
+
+    fresh = make_gpt2_train_step(
+        cfg, optimizer=default_optimizer(warmup=2, total_steps=1000),
+        generator=torch.Generator(device=device).manual_seed(0), device=device)
+    tree = checkpoint.to_torch(target=train_tree(fresh.state))
+    opt = fresh.state["opt_state"]
+    opt.load_state_dict(tree["opt_state"])
+    params = dict(named_leaves(fresh.state["params"]))
+    differ = [n for n, p in named_leaves(final["params"])
+              if not (params[n].device == p.device and torch.equal(params[n], p))]
+    old = final["opt"]
+    for i, (p, q) in enumerate(zip(opt.param_groups[0]["params"],
+                                   old.param_groups[0]["params"])):
+        for k in ("mu", "nu"):
+            a, b = opt.state[p][k], old.state[q][k]
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                differ.append(f"{k}[{i}]")
+    if tree["step"] != final["step"] or opt.count != old.count:
+        differ.append(f"step {tree['step']} count {opt.count}, expected "
+                      f"{final['step']} and {old.count}")
+    log(f"[trainer] A's checkpoint restored into a fresh state on {device}: "
+        f"{len(params)} params and their moments, step {tree['step']}, count "
+        f"{opt.count}; differing: {differ}")
+    if differ:
+        fail(f"[trainer] to_torch did not restore A's state bitwise: {differ}")
+
+
+def trainer_phase(card: str, train_step_ms: Optional[float], device="cuda",
+                  cfg=None, batch: int = TRAIN_BATCH) -> dict:
+    """TorchTrainer(trainer_loop, scaling_config=ScalingConfig(num_workers=1,
+    use_gpu=True)).fit() on init(local_mode=True), GPT-2 at `cfg`
+    (gpt2_124m(remat=False) by default) and `batch` on `device` (on the CPU
+    no kernel launches, so none is expected): runs A, B (resumed from
+    A's checkpoint), C, C2 and C3 (straight), D (FailureConfig(
+    max_failures=1) over a loop that fails once). Each fit must end without error with one
+    metrics row a report and finite losses; C's losses fall; A's checkpoint
+    restores A's state bitwise; B's losses sit within resume_limit of C's;
+    D retries from its step-2 checkpoint and reports 8 steps; each flash
+    kernel launches trainer_launches times (counts set to 0 just before the
+    first fit, read just after the last). Prints each fit's seconds (set-up
+    to the first step, the first step, teardown after the last report) and
+    peak memory, and the median steady step_ms beside [train]'s. Returns
+    the launches and that median."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import (
+        FailureConfig, RunConfig, ScalingConfig, TorchTrainer,
+    )
+
+    cfg = cfg or gpt2.gpt2_124m(remat=False)
+    on_card = torch.device(device).type == "cuda"
+    taken = trainer_steps_taken()
+    runs = {}
+    ray_tpu_torch.init(local_mode=True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as root:
+            def fit(name, first, resume=None, failures=0, **loop):
+                free_device_memory()
+                held = torch.cuda.memory_allocated() if on_card else None
+                sink = {}
+                trainer = TorchTrainer(
+                    trainer_loop,
+                    train_loop_config={"name": name, "root": root,
+                                       "sink": sink, "until": TRAINER_UNTIL,
+                                       "cfg": cfg, "device": device,
+                                       "batch": batch, **loop},
+                    scaling_config=ScalingConfig(num_workers=1,
+                                                 use_gpu=on_card),
+                    run_config=RunConfig(
+                        name=f"chip-smoke-{name}",
+                        failure_config=FailureConfig(max_failures=failures)),
+                    resume_from_checkpoint=resume)
+                t0 = time.perf_counter()
+                result = trainer.fit()
+                t1 = time.perf_counter()
+                if result.error is not None:
+                    fail(f"[trainer] fit {name} failed: {result.error!r}")
+                rows = result.metrics_dataframe
+                steps = [r["step"] for r in rows]
+                losses = [r["loss"] for r in rows]
+                until = loop.get("until", TRAINER_UNTIL)
+                if steps != list(range(first, until + 1)):
+                    fail(f"[trainer] fit {name} reported steps {steps}")
+                if not all(map(math.isfinite, losses + [r["grad_norm"] for r in rows])):
+                    fail(f"[trainer] fit {name}: non-finite loss or grad norm")
+                run = dict(result=result, sink=sink, loss=losses, steps=steps,
+                           step_ms=[r["step_ms"] for r in rows],
+                           fit_s=t1 - t0, setup_s=sink["t_first"] - t0,
+                           first_step_ms=rows[0]["step_ms"],
+                           teardown_s=t1 - sink["t_done"],
+                           peak_memory_bytes=peak_memory(device),
+                           held_at_start_bytes=held,
+                           attempts=sink["attempts"], starts=sink["starts"],
+                           save_s=sink["save_s"],
+                           restore_s=sink.get("restore_s", []))
+                log(f"[trainer] fit {name}: " + json.dumps(
+                    {k: v for k, v in run.items() if k not in ("result", "sink")}))
+                return run
+
+            reset_launches()
+            runs["A"] = fit("A", 1, until=TRAINER_A, keep_final=True)
+            runs["B"] = fit("B", TRAINER_A + 1,
+                            resume=runs["A"]["result"].checkpoint)
+            runs["C"] = fit("C", 1)
+            runs["C2"] = fit("C2", 1)
+            runs["C3"] = fit("C3", 1)
+            runs["D"] = fit("D", 1, failures=1, ckpt_at=(TRAINER_D_CKPT,),
+                            fail_after=TRAINER_D_FAIL)
+            launches = launches_since_reset()
+            free_device_memory()
+            if on_card:     # what the backend still holds of the fits
+                log(f"[trainer] held after the fits: "
+                    f"{torch.cuda.memory_allocated()} bytes")
+            check_restore(cfg, runs["A"]["result"].checkpoint,
+                          runs["A"]["sink"]["final"], device)
+    finally:
+        ray_tpu_torch.shutdown()
+
+    expected = trainer_launches(cfg.n_layer, taken) if on_card else 0
+    log(f"[trainer] launches {json.dumps(launches)} (expected {expected} "
+        f"each: {cfg.n_layer} a step of the runs' {json.dumps(taken)}"
+        f"{'' if on_card else ', none on the CPU'})")
+    if launches != {"flash_fwd": expected, "flash_bwd": expected}:
+        fail(f"[trainer] launched {launches}, expected {expected} each")
+    c, b = runs["C"]["loss"], runs["B"]["loss"]
+    if not c[-1] < c[0]:
+        fail(f"[trainer] C's loss did not fall: {c}")
+    straight = [runs[n]["loss"][TRAINER_A:] for n in ("C", "C2", "C3")]
+    limit = resume_limit(straight)
+
+    def from_c(x):
+        return max(abs(p - q) for p, q in zip(x, straight[0]))
+
+    d_tail = runs["D"]["loss"][TRAINER_A:]
+    log("[trainer] resume " + json.dumps(dict(
+        B=b, C=straight[0], C2=straight[1], C3=straight[2], D=d_tail,
+        B_vs_C=from_c(b), C2_vs_C=from_c(straight[1]),
+        C3_vs_C=from_c(straight[2]), D_vs_C=from_c(d_tail), limit=limit)))
+    distance = from_c(b)
+    if distance > limit:
+        fail(f"[trainer] B's losses are {distance} from C's, limit {limit}")
+    d = runs["D"]
+    if d["attempts"] != 2 or d["starts"] != [0, TRAINER_D_CKPT]:
+        fail(f"[trainer] D ran {d['attempts']} attempts from steps "
+             f"{d['starts']}, expected 2 from [0, {TRAINER_D_CKPT}]")
+    steady = sorted(ms for r in runs.values()
+                    for step, ms in zip(r["steps"], r["step_ms"])
+                    if step - 1 not in r["starts"])  # an attempt's first step
+    median = steady[len(steady) // 2]
+    log("[trainer] " + json.dumps(dict(
+        card=card, n_layer=cfg.n_layer, d_model=cfg.d_model, batch=batch,
+        seq_len=cfg.seq_len, steady_step_ms_median=median,
+        train_step_ms_median=train_step_ms,
+        through_trainer_minus_train_ms=None if train_step_ms is None
+        else median - train_step_ms,
+        fit_s={n: r["fit_s"] for n, r in runs.items()},
+        peak_memory_bytes={n: r["peak_memory_bytes"] for n, r in runs.items()})))
+    return {"launches": launches, "step_ms_median": median}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true")
@@ -3410,16 +3826,22 @@ def main() -> int:
         return out
 
     rllib_phase(card, args.profile)
+    # the runtime and Train on it, after the model paths (their step times
+    # stay comparable with earlier runs)
+    free_device_memory()
+    core = core_phase(card)
+    free_device_memory()
+    trainer = trainer_phase(card, train["step_ms_median"])
 
     # top level: GPT-2's training path at its own shape; by_path: each main
     # path at its own shape with its own launches
     fwd_paths = {
-        "train": numbers(bwd["fwd_main"], train["flash_fwd"]),
+        "train": numbers(bwd["fwd_main"], train["launches"]["flash_fwd"]),
         "serve": numbers(fwd["main"], serve),
         "llama_serve": numbers(fwd["llama_serve"], llama_serve),
-        "llama_train": numbers(bwd["fwd_llama_train"], llama_train["flash_fwd"]),
+        "llama_train": numbers(bwd["fwd_llama_train"], llama_train["launches"]["flash_fwd"]),
         "moe_serve": numbers(fwd["main"], moe_serve),
-        "moe_train": numbers(bwd["fwd_main"], moe_train["flash_fwd"]),
+        "moe_train": numbers(bwd["fwd_main"], moe_train["launches"]["flash_fwd"]),
         "parallel_train": numbers(bwd["fwd_main"], par["parallel"]["flash_fwd"]),
         "parallel_moe_train": numbers(bwd["fwd_main"],
                                       par["parallel-moe"]["flash_fwd"]),
@@ -3437,11 +3859,13 @@ def main() -> int:
         **ring_paths("fwd_", "flash_fwd"),
         **gathered_paths("fwd_", "flash_fwd"),
         **multi_card_paths(bwd, "fwd_", par["multi_card"], "flash_fwd"),
+        "core": numbers(fwd["main"], core["flash_fwd"]),
+        "trainer": numbers(bwd["fwd_main"], trainer["launches"]["flash_fwd"]),
     }
     bwd_paths = {
-        "train": numbers(bwd["main"], train["flash_bwd"]),
-        "llama_train": numbers(bwd["llama_train"], llama_train["flash_bwd"]),
-        "moe_train": numbers(bwd["main"], moe_train["flash_bwd"]),
+        "train": numbers(bwd["main"], train["launches"]["flash_bwd"]),
+        "llama_train": numbers(bwd["llama_train"], llama_train["launches"]["flash_bwd"]),
+        "moe_train": numbers(bwd["main"], moe_train["launches"]["flash_bwd"]),
         "parallel_train": numbers(bwd["main"], par["parallel"]["flash_bwd"]),
         "parallel_moe_train": numbers(bwd["main"],
                                       par["parallel-moe"]["flash_bwd"]),
@@ -3458,6 +3882,8 @@ def main() -> int:
         **ring_paths("", "flash_bwd"),
         **gathered_paths("", "flash_bwd"),
         **multi_card_paths(bwd, "", par["multi_card"], "flash_bwd"),
+        "core": numbers(bwd["core"], core["flash_bwd"]),
+        "trainer": numbers(bwd["main"], trainer["launches"]["flash_bwd"]),
     }
     log(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",

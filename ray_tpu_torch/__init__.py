@@ -6,11 +6,12 @@ sm_90a (ops/csrc/). Module paths and function names follow ray_tpu so each
 module's counterpart is easy to find. The package imports nothing of JAX
 or of ray_tpu; entry points run on the card unless the caller passes
 device="cpu", where every kernel wrapper uses its plain PyTorch version.
+
+The runtime's API (init, remote, get, put, wait, actors...) is ray_tpu's
+in-process mode: ``init(local_mode=True)``; see api.py.
 """
 
 import torch as _torch
-
-from ray_tpu_torch._version import __version__
 
 # MKL's vector math, which torch.exp, tanh, log, sin ... of a float CPU
 # tensor call in 2048-element chunks over the intra-op threads, can get
@@ -21,4 +22,45 @@ from ray_tpu_torch._version import __version__
 # whole process, so the port's first call equals its second.
 _torch.exp(_torch.zeros(1))
 
-__all__ = ["__version__"]
+from ray_tpu_torch._version import __version__  # noqa: E402
+from ray_tpu_torch.actor import method  # noqa: E402
+from ray_tpu_torch.api import (  # noqa: E402
+    available_resources,
+    cancel,
+    cluster_resources,
+    get,
+    get_actor,
+    init,
+    is_initialized,
+    kill,
+    nodes,
+    put,
+    put_many,
+    remote,
+    shutdown,
+    wait,
+)
+from ray_tpu_torch.core.config import _config  # noqa: E402
+from ray_tpu_torch.core.refs import ObjectRef  # noqa: E402
+from ray_tpu_torch import exceptions  # noqa: E402
+
+__all__ = [
+    "__version__",
+    "init",
+    "shutdown",
+    "is_initialized",
+    "remote",
+    "method",
+    "get",
+    "put",
+    "put_many",
+    "wait",
+    "kill",
+    "cancel",
+    "get_actor",
+    "cluster_resources",
+    "available_resources",
+    "nodes",
+    "ObjectRef",
+    "exceptions",
+]

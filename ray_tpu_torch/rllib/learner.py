@@ -87,9 +87,6 @@ class TreeLearner:
             b1=0.9, b2=0.999, grad_clip=grad_clip, eps=1e-8,
             moment_dtype=torch.float32,
         )
-        for p in self._leaves:  # optax's init: zero moments, count 0
-            self._optimizer.state[p] = {"mu": torch.zeros_like(p),
-                                        "nu": torch.zeros_like(p)}
         self._step = 0
 
     def _apply_gradients(self, loss: torch.Tensor) -> None:

@@ -92,7 +92,12 @@ class ClippedAdamW(torch.optim.Optimizer):
     Adam's bias correction already counts it as step 1. After each step,
     `grad_norm` holds the global norm of the gradients before clipping (a
     0-d f32 tensor on the parameters' device). A meshed step, whose
-    parameters are shards, hands `step` the global norm."""
+    parameters are shards, hands `step` the global norm.
+
+    The moments are made (zeros) with the optimizer, as optax's init makes
+    them, and `state_dict()` carries the count of updates besides the
+    moments and the param group: a checkpoint of it restores the schedule
+    and the bias correction where they were."""
 
     def __init__(
         self, params: Iterable[torch.Tensor], schedule: Callable[[int], float],
@@ -109,6 +114,31 @@ class ClippedAdamW(torch.optim.Optimizer):
         self.schedule = schedule
         self.count = 0          # updates applied so far
         self.grad_norm: Optional[torch.Tensor] = None
+        for p in self.param_groups[0]["params"]:
+            self.state[p] = {"mu": torch.zeros_like(p, dtype=moment_dtype),
+                             "nu": torch.zeros_like(p, dtype=moment_dtype)}
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {**super().state_dict(), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        """Its state_dict() back (its "state" keyed by the parameters'
+        integer indices, as state_dict() gives them). The moments are
+        copied into the optimizer's own, which keep moment_dtype and the
+        parameters' device, so the restore is exact whatever the
+        parameters' dtype."""
+        (saved,) = state_dict["param_groups"]
+        group = self.param_groups[0]
+        if len(saved["params"]) != len(group["params"]):
+            raise ValueError(
+                f"state_dict holds {len(saved['params'])} parameters, the "
+                f"optimizer {len(group['params'])}")
+        for i, p in zip(saved["params"], group["params"]):
+            for k in ("mu", "nu"):
+                self.state[p][k].copy_(state_dict["state"][i][k])
+        group.update({k: v for k, v in saved.items() if k != "params"})
+        self.count = int(state_dict["count"])
 
     @torch.no_grad()
     def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
@@ -127,9 +157,6 @@ class ClippedAdamW(torch.optim.Optimizer):
         lr = self.schedule(self.count)
         for p in params:
             state = self.state[p]
-            if not state:
-                state["mu"] = torch.zeros_like(p, dtype=group["moment_dtype"])
-                state["nu"] = torch.zeros_like(p, dtype=group["moment_dtype"])
             g = p.grad.float()
             g = torch.where(keep, g, g / norm * group["grad_clip"])
             m = state["mu"].float().mul_(b1).add_(g * (1 - b1))

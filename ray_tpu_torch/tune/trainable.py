@@ -1,9 +1,11 @@
 """Trainable: the unit of execution Tune schedules.
 
-The port's copy of ray_tpu/tune/trainable.py's `Trainable` (stdlib only):
-a class with setup/step/save/restore whose train() runs one iteration.
-RLlib's Algorithm subclasses it. `wrap_function` and Tune itself wait for
-the runtime planes (ROADMAP.md Queue A item 5).
+The port's copy of ray_tpu/tune/trainable.py (stdlib only): `Trainable`,
+a class with setup/step/save/restore whose train() runs one iteration
+(RLlib's Algorithm subclasses it), and `wrap_function`, which makes one
+from a function trainable such as a trainer's `as_trainable()`. Tune's
+controller (Tuner, trials, schedulers) waits for the multi-process
+runtime (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import os
 import pickle
 import tempfile
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 
 class Trainable:
@@ -91,3 +93,54 @@ class Trainable:
     @property
     def iteration(self) -> int:
         return self._iteration
+
+
+def wrap_function(train_fn: Callable) -> type:
+    """Build a Trainable class from a function trainable.
+
+    The function receives (config) — or (config, checkpoint_dir) when it
+    declares two parameters — and reports by returning a metrics dict (one
+    iteration) or by yielding one per iteration (a generator).
+    Parity: tune/trainable/function_trainable.py:287 — the reference runs the
+    fn on a thread and pumps a queue; we run it step-wise for determinism.
+    """
+    import inspect
+
+    class FunctionTrainable(Trainable):
+        _fn = staticmethod(train_fn)
+
+        def setup(self, config):
+            self._gen = None
+            self._last_checkpoint_state = None
+
+        def _make_gen(self, checkpoint_state=None):
+            sig = inspect.signature(self._fn)
+            if len(sig.parameters) >= 2:
+                out = self._fn(self.config, checkpoint_state)
+            else:
+                out = self._fn(self.config)
+            return out
+
+        def step(self):
+            if self._gen is None:
+                out = self._make_gen(self._last_checkpoint_state)
+                if inspect.isgenerator(out):
+                    self._gen = out
+                else:
+                    self._final = dict(out or {})
+                    self._final.setdefault("done", True)
+                    return self._final
+            try:
+                return dict(next(self._gen))
+            except StopIteration:
+                return {"done": True}
+
+        def save_checkpoint(self, checkpoint_dir):
+            return {"state": self._last_checkpoint_state}
+
+        def load_checkpoint(self, checkpoint):
+            if isinstance(checkpoint, dict):
+                self._last_checkpoint_state = checkpoint.get("state")
+
+    FunctionTrainable.__name__ = getattr(train_fn, "__name__", "fn") + "_trainable"
+    return FunctionTrainable

@@ -176,7 +176,25 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
             "ray_tpu_torch/rllib/algorithms/dqn.py",
             "ray_tpu_torch/rllib/algorithms/sac.py",
             "ray_tpu_torch/rllib/algorithms/bc.py",
-            "ray_tpu_torch/tune/trainable.py"} <= names
+            "ray_tpu_torch/tune/trainable.py",
+            "ray_tpu_torch/api.py",
+            "ray_tpu_torch/actor.py",
+            "ray_tpu_torch/remote_function.py",
+            "ray_tpu_torch/exceptions.py",
+            "ray_tpu_torch/core/ids.py",
+            "ray_tpu_torch/core/options.py",
+            "ray_tpu_torch/core/refs.py",
+            "ray_tpu_torch/core/resources.py",
+            "ray_tpu_torch/core/serialization.py",
+            "ray_tpu_torch/core/config.py",
+            "ray_tpu_torch/core/backend.py",
+            "ray_tpu_torch/core/local_backend.py",
+            "ray_tpu_torch/util/backoff.py",
+            "ray_tpu_torch/train/config.py",
+            "ray_tpu_torch/train/session.py",
+            "ray_tpu_torch/train/checkpoint.py",
+            "ray_tpu_torch/train/worker_group.py",
+            "ray_tpu_torch/train/trainer.py"} <= names
     bad = [
         (str(f.relative_to(REPO)), name)
         for f in files for name in _imports(f)

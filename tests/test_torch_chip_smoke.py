@@ -767,3 +767,72 @@ def test_rllib_parity_fails_on_a_dqn_target_that_aliases_the_parameters(
     with pytest.raises(SystemExit, match=r"\[rllib-parity\] dqn: .*differ"):
         small_rllib.rllib_parity(("cpu", "cpu"))
     assert "[rllib-parity] sac" not in capsys.readouterr().out
+
+
+# ----------------------------------------------------- [core] and [trainer]
+
+def small_trainer_cfg():
+    from ray_tpu_torch.models import gpt2
+
+    return replace(gpt2.gpt2_tiny(), n_layer=1, seq_len=32)
+
+
+def test_trainer_launch_formula_and_resume_limit(smoke):
+    taken = smoke.trainer_steps_taken()
+    assert taken == {"A": 4, "B": 4, "C": 8, "C2": 8, "C3": 8, "D": 9}
+    assert smoke.trainer_launches(12, taken) == 12 * 41 == 492
+    assert smoke.trainer_steps_taken(a=2, until=5, ckpt=1, fail_after=4)["D"] == 8
+    # four times the widest spread of the straight runs at one step, at
+    # least LOSS_TOL
+    runs = [[10.0, 9.0], [10.0005, 9.0], [10.0, 9.002]]
+    assert smoke.resume_limit(runs) == pytest.approx(4 * 0.002)
+    assert smoke.resume_limit([[1.0, 2.0], [1.0, 2.0]]) == smoke.LOSS_TOL
+    assert smoke.resume_limit(runs, floor=0.1, factor=2) == 0.1
+
+
+def test_trainer_phase_on_the_cpu(smoke, monkeypatch, capsys):
+    """The [trainer] phase end to end on the CPU at a one-layer gpt2_tiny:
+    five fits through TorchTrainer, A's restore bitwise, B equal to C (one
+    process, the same sums), D retried from its step-2 checkpoint; the
+    attention calls the fits make (counted in the kernels' place, which do
+    not launch on the CPU) are trainer_launches'."""
+    from ray_tpu_torch.ops import attention as A
+
+    calls = []
+    for name in ("_mha_forward_bhsd", "_mha_backward_bhsd"):
+        fn = getattr(A, name)
+        monkeypatch.setattr(A, name, lambda *a, fn=fn, name=name, **kw: (
+            calls.append(name), fn(*a, **kw))[1])
+    cfg = small_trainer_cfg()
+    out = smoke.trainer_phase("card", 100.0, device="cpu", cfg=cfg, batch=2)
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+    want = smoke.trainer_launches(cfg.n_layer, smoke.trainer_steps_taken())
+    # the restore check builds a state, it takes no step
+    assert calls.count("_mha_forward_bhsd") == calls.count("_mha_backward_bhsd") == want
+    text = capsys.readouterr().out
+    assert "differing: []" in text and '"B_vs_C": 0.0' in text
+    assert '"attempts": 2, "starts": [0, 2]' in text
+    assert '"train_step_ms_median": 100.0' in text
+    assert not ray_tpu_torch_initialized()
+
+
+def ray_tpu_torch_initialized():
+    import ray_tpu_torch
+
+    return ray_tpu_torch.is_initialized()
+
+
+def test_trainer_phase_fails_on_a_restore_that_loses_the_count(smoke, monkeypatch):
+    """A ClippedAdamW.load_state_dict that drops the count of updates (so
+    the schedule and the bias correction restart) fails the phase."""
+    from ray_tpu_torch.train.train_step import ClippedAdamW
+
+    load = ClippedAdamW.load_state_dict
+
+    def forgetful(self, state_dict):
+        load(self, state_dict)
+        self.count = 0
+    monkeypatch.setattr(ClippedAdamW, "load_state_dict", forgetful)
+    with pytest.raises(SystemExit, match=r"\[trainer\] (to_torch did not restore|B's losses)"):
+        smoke.trainer_phase("card", None, device="cpu", cfg=small_trainer_cfg(), batch=2)
+    assert not ray_tpu_torch_initialized()
