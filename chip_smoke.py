@@ -217,7 +217,21 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    kernel 12 launches a step of all the runs (counts set to 0 just before
    the first fit, read just after the last). Prints each fit's seconds and
    peak memory, and the median steady step ms beside [train]'s.
-23. [cluster]: the multi-process runtime on one node:
+23. [data]: the Data layer (ray_tpu_torch.data) in the in-process
+   runtime: a 1 GiB f32 Dataset (from_numpy, rows of 4096, 16 blocks)
+   through iter_batches(batch_size=16384, device="cuda",
+   prefetch_batches=1), 256 MiB a batch staged in reused pinned buffers
+   and copied on a side stream; every batch equal to its numpy source in
+   every bit. Prints one batch's host staging ms and its pinned H2D GB/s
+   beside a pageable torch.as_tensor(x).to("cuda"), and the loop's wall
+   time with a fixed device workload a batch (4 f32 products with a
+   [4096, 4096] matrix), three times, with the host's time inside the
+   iterator's next(), beside the sums of copy and workload and of staging,
+   copy and workload.
+   Then iter_stacked_batches feeds one stack of 4 GPT-2-124M steps at
+   B 24 to multi_step_fn: its losses equal, in every bit, step_fn's on the
+   same numpy batches, with 48 launches of each kernel.
+24. [cluster]: the multi-process runtime on one node:
    ray_tpu_torch.init() without local mode starts a GCS, a raylet and
    worker processes. cluster_resources() reports GPU and GPU-<kind> = the
    card count; neither the GCS nor the raylet holds a /dev/nvidia* file
@@ -238,7 +252,7 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    memory (nvidia-smi's memory.used before and after), and a 256 MiB CUDA
    tensor put here, got in a worker and moved onto the card, put there and
    got and moved back here, in GB/s each step.
-24. [cluster-trainer]: TorchTrainer(..., ScalingConfig(num_workers=1,
+25. [cluster-trainer]: TorchTrainer(..., ScalingConfig(num_workers=1,
    use_gpu=True)).fit() on that cluster trains GPT-2-124M at B 24 x 1024
    in a worker process: run E straight to step 8, its losses falling and
    within [trainer]'s resume limit of [trainer]'s straight run C, its
@@ -253,9 +267,36 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    its card, which the worker makes its CUDA_VISIBLE_DEVICES) and
    TorchTrainer(num_workers=2, use_gpu=True) over dp 2 (NCCL, a card a
    worker) held to the world-1 mesh step as the fsdp plan is; with one
-   card each says that the run did not take place. Then shutdown(): no
-   process the cluster spawned is left in /proc.
-25. Print the kernels line (each kernel's numbers by model path), the card's
+   card each says that the run did not take place.
+26. [data-train] on that cluster: TorchTrainer(datasets={"train": ds},
+   num_workers=1, use_gpu=True) trains GPT-2-124M at B 24 x 1024 for 12
+   steps in a worker process, its batches from get_dataset_shard("train")
+   .iter_batches(batch_size=24, device="cuda", drop_last=True) over a
+   Dataset of the 12 synthetic_batch(cfg, 24, seed=i) batches as 288 rows
+   (tokens, targets; int32). Its 12 losses equal, in every bit, the same
+   step fed the same numpy batches here; 144 launches of each kernel in
+   the worker. Prints the steady step beside [cluster-trainer]'s, the
+   fit's set-up and each step's wait for its batch.
+27. [data-serve] on that cluster: a Dataset of [main]'s 4 requests (32
+   rows of 1024 tokens and an id) through BatchPredictor.from_checkpoint(
+   ckpt, TorchPredictor, apply_fn=<[main]'s>, device="cuda").predict(ds,
+   batch_size=8, num_workers=1, keep_columns=("id",)) on one GPU actor:
+   next_token and logit equal [main]'s answers in every bit, 48 flash_fwd
+   and 0 flash_bwd launches in the actor. Prints ms a batch beside [main]'s
+   request, rows/s, the checkpoint's bytes, its put here and the actor's
+   start to its first answer.
+28. [rllib-remote] on that cluster: PPO at BASELINE config 2 with 2 CPU
+   EnvRunner actors (8 envs each) and the learner on the card, to
+   [rllib-ppo]'s target within its step budget, iterations and env-steps/s
+   beside [rllib-ppo]'s inline run; learner_mode="remote" (a PPO learner on
+   a num_gpus=1 actor): one update on a fixed batch equal to the local
+   learner's on the card in every bit (metrics and weights), its ms;
+   IMPALA's asynchronous loop with 2 workers at the reference test's
+   settings (Pong-v0, 4 envs, fragments of 32, 4 updates an iteration),
+   held to that test's checks, env-steps/s and the learner's updates/s;
+   DQN and SAC with 2 sampling workers, 3 iterations each, updates/s. Then
+   shutdown(): no process the cluster spawned is left in /proc.
+29. Print the kernels line (each kernel's numbers by model path), the card's
    name and power limit, and last the result line {"ok": true, ...}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -273,6 +314,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from contextlib import contextmanager
 from dataclasses import replace
@@ -898,7 +940,7 @@ def backward_case(name, q, k, v, o, lse, do, q_off=0, kv_off=0, causal=True,
     return row, out
 
 
-def backward_cases(gen):
+def backward_cases(gen, plans=None):
     from ray_tpu_torch.ops import attention as A
 
     def rand(B, H, S, hd):
@@ -1003,7 +1045,9 @@ def backward_cases(gen):
     # fwd_rank_<plan> at its shape; a shape that ran above shares its rows
     seen = {((LLAMA_TRAIN_BATCH, 16, 2048, 64), 4): "llama_tp2",
             ((mb, 12, 1024, 64), 12): "pipeline"}
-    for plan in multi_card_plans(torch.cuda.device_count()):
+    if plans is None:
+        plans = multi_card_plans(torch.cuda.device_count())
+    for plan in plans:
         if plan["mesh"].get("cp", 1) > 1:
             continue        # a ring's chunks: ring_phase's rows
         shape, kv = rank_attention_shape(plan)
@@ -1178,7 +1222,7 @@ def ring_case(card: str, name: str, shape, cp: int, gen) -> dict:
     return {"launches": launches, "rows": rows}
 
 
-def ring_phase(card: str, gen) -> dict:
+def ring_phase(card: str, gen, plans=None) -> dict:
     """[ring]: ring_case at GPT-2-124M's attention (B TRAIN_BATCH) and
     llama_1b's (B LLAMA_TRAIN_BATCH, 32 heads) at full width, RING_CP
     chunks; then the chunk rows at each multi-card cp
@@ -1190,7 +1234,9 @@ def ring_phase(card: str, gen) -> dict:
         out[name] = ring_case(card, name, shape, RING_CP, gen)
         free_device_memory()
     seen = {((TRAIN_BATCH, 12, 1024 // RING_CP, 64), 12): out["gpt2_124m"]["rows"]}
-    for plan in multi_card_plans(torch.cuda.device_count()):
+    if plans is None:
+        plans = multi_card_plans(torch.cuda.device_count())
+    for plan in plans:
         cp = plan["mesh"].get("cp", 1)
         if cp == 1 or gathered_plan(plan):
             continue        # no ring; the gathered path's rows: [gathered]
@@ -1701,8 +1747,20 @@ def free_device_memory() -> None:
         torch.cuda.reset_peak_memory_stats()
 
 
+def serve_apply_fn(model, cfg):
+    """A serving path's apply_fn: each row's next token (the argmax of the
+    last position's logits over the vocabulary) and that logit."""
+    def apply_fn(params, batch):
+        logits = model.forward(params, batch["tokens"], cfg)[:, -1, :cfg.vocab_size]
+        best = logits.float().max(dim=-1)
+        return {"next_token": best.indices, "logit": best.values}
+
+    return apply_fn
+
+
 def serve_path(card: str, profile: bool, tag: str, name: str, model, cfg,
-               n_requests: int, batch: int, logits_tol) -> int:
+               n_requests: int, batch: int, logits_tol,
+               keep: Optional[dict] = None) -> int:
     """`model` (models.gpt2 or models.llama) at `cfg` with random weights from
     a seeded generator, in a Checkpoint served by a TorchPredictor that
     answers n_requests requests of batch x seq_len tokens. Launch counts are
@@ -1711,7 +1769,8 @@ def serve_path(card: str, profile: bool, tag: str, name: str, model, cfg,
     are checked against the same weights through the plain attention path,
     within logits_tol = (max, mean); with MoE the routing decisions that
     differ between the two paths are counted and bounded. Returns
-    flash_fwd's launches."""
+    flash_fwd's launches; `keep` (a dict) gets the answers and the median
+    request ms after the first."""
     from ray_tpu_torch.train.batch_predictor import TorchPredictor
     from ray_tpu_torch.train.checkpoint import Checkpoint
     from ray_tpu_torch.train.train_step import synthetic_batch
@@ -1725,14 +1784,9 @@ def serve_path(card: str, profile: bool, tag: str, name: str, model, cfg,
         f"S={cfg.seq_len} vocab={cfg.padded_vocab}, {cfg.dtype}; init "
         f"{time.perf_counter() - t0:.2f} s")
 
-    def apply_fn(params, batch):
-        logits = model.forward(params, batch["tokens"], cfg)[:, -1, :cfg.vocab_size]
-        best = logits.float().max(dim=-1)
-        return {"next_token": best.indices, "logit": best.values}
-
     predictor = TorchPredictor.from_checkpoint(
-        Checkpoint.from_dict({"params": params}), apply_fn=apply_fn,
-        device="cuda")
+        Checkpoint.from_dict({"params": params}),
+        apply_fn=serve_apply_fn(model, cfg), device="cuda")
     requests = [synthetic_batch(cfg, batch, seed=i)["tokens"]
                 for i in range(n_requests)]
 
@@ -1761,6 +1815,8 @@ def serve_path(card: str, profile: bool, tag: str, name: str, model, cfg,
         if not all(map(math.isfinite, logit.tolist())):
             fail(f"non-finite logits: {logit}")
     steady = sorted(times[1:])[len(times[1:]) // 2]
+    if keep is not None:
+        keep.update(answers=answers, request_ms=steady * 1e3)
     log(f"[{tag}] " + json.dumps(dict(
         card=card, model=name, requests=n_requests, batch=batch,
         seq_len=cfg.seq_len, request_ms=[t * 1e3 for t in times],
@@ -2700,6 +2756,31 @@ def multi_card_check(profile: bool = False) -> int:
     return 0
 
 
+def rank_shape_check(count: int = MULTI_CARD_MAX) -> int:
+    """On one card, the kernel cases at the rank shapes of the plans that
+    `count` cards run (multi_card_plans(count)), as the multi-card smoke
+    runs them: the backward cases with each non-cp plan's rank shape and
+    the ring's chunk rows with each cp plan's. For the kernel table's rank
+    rows without `count` cards: python3 -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.rank_shape_check())"."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = nvidia_smi()
+    log(f"[env] {card}; the rank shapes of {count} cards on one")
+    build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    plans = multi_card_plans(count)
+    backward_cases(gen, plans)
+    free_device_memory()
+    ring_phase(card, gen, plans)
+    log(card)
+    return 0
+
+
 def parallel_phase(card: str, profile: bool = False) -> dict:
     """[parallel]: a world-1 NCCL process group started here and its
     make_mesh(MeshSpec()) on cuda. GPT-2-124M at B TRAIN_BATCH through the
@@ -2980,11 +3061,12 @@ def rllib_ppo(card: str, device="cuda", profile: bool = False) -> dict:
             .build())
     rllib_placement("rllib-ppo", algo, device)
     t = rllib_timed(algo, device)
-    result, it, update_ms = {}, 0, []
+    result, it, update_ms, iteration_s = {}, 0, [], []
     while result.get("timesteps_total", 0) < RLLIB_PPO_MAX_STEPS:
         it += 1
         result = algo.train()
         update_ms.append(sum(t["update_s"]) * 1e3)
+        iteration_s.append(result["time_this_iter_s"])
         log(rllib_iteration_row("rllib-ppo", it, result, t, device))
         if (result["episode_reward_mean"] >= RLLIB_TARGET_REWARD
                 and result["episodes_this_window"] >= RLLIB_MIN_EPISODES):
@@ -3010,7 +3092,8 @@ def rllib_ppo(card: str, device="cuda", profile: bool = False) -> dict:
         profile_device_time(f"one PPO update ({len(batch)} rows)", one_update,
                             top=16)
     return {"iterations": it, "env_steps": result["timesteps_total"],
-            "update_ms": update_ms}
+            "env_steps_per_s": result["timesteps_total"] / result["time_total_s"],
+            "iteration_s": iteration_s, "update_ms": update_ms}
 
 
 def rllib_impala(card: str, device="cuda") -> dict:
@@ -4444,6 +4527,586 @@ def multi_card_trainer(card: str, ref: dict, device="cuda",
     hold_to_world_one(card, plan, ranks, ref, device)
 
 
+# --------------------------------------------------------------------------- #
+# [data] in the in-process runtime; [data-train], [data-serve] and
+# [rllib-remote] on [cluster]'s running cluster
+# --------------------------------------------------------------------------- #
+
+# [data]: 1 GiB of f32 rows of DATA_ROW in DATA_BLOCKS blocks, batches of
+# DATA_BATCH rows (256 MiB). The overlap loop's device workload a batch:
+# DATA_WORK f32 products of the batch with a [4096, 4096] matrix (TF32 off;
+# 2.2 TFLOP, some tens of ms on an H100, against about 10 ms for the
+# batch's pinned copy at PCIe 5's rate). Then a stack of DATA_STACK_STEPS
+# GPT-2-124M steps at TRAIN_BATCH through iter_stacked_batches.
+DATA_BYTES, DATA_ROW, DATA_BLOCKS, DATA_BATCH = 2 ** 30, 4096, 16, 16384
+DATA_WORK, DATA_STACK_STEPS, DATA_LOOPS = 4, 4, 3
+# [data-train]: steps of TRAIN_BATCH rows, one synthetic batch a step
+DATA_TRAIN_STEPS = 12
+# [rllib-remote]: EnvRunner actors (BASELINE config 2's 16 envs split over
+# them) and sampling workers; IMPALA's asynchronous loop at
+# tests/test_rllib_impala.py::test_impala_async_workers_smoke's settings
+RLLIB_REMOTE_WORKERS = 2
+RLLIB_REMOTE_IMPALA = dict(env="Pong-v0", num_envs=4, fragment=32,
+                           updates_per_iteration=4, seed=1, iterations=2)
+RLLIB_REMOTE_OFFPOLICY_ITERS = 3
+
+
+def device_ms(fn, device, iters: int = 5) -> float:
+    """Mean ms of fn(): CUDA events on the card, the host clock around
+    synchronized calls elsewhere."""
+    if torch.device(device).type == "cuda":
+        return cuda_ms(fn, iters=iters, warmup=1)
+    fn()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t) / iters * 1e3
+
+
+def gpt2_bundle(cfg, device):
+    """GPT-2's train step as [trainer] builds it: a generator seeded 0 on
+    `device`, warm-up 2 of 1000 steps."""
+    from ray_tpu_torch.train.train_step import default_optimizer, make_gpt2_train_step
+
+    return make_gpt2_train_step(
+        cfg, optimizer=default_optimizer(warmup=2, total_steps=1000),
+        generator=torch.Generator(device=device).manual_seed(0), device=device)
+
+
+def direct_losses(cfg, feeds, device) -> list:
+    """The losses of gpt2_bundle's step_fn fed the numpy batches `feeds`
+    in turn, here."""
+    bundle = gpt2_bundle(cfg, device)
+    state, losses = bundle.state, []
+    for feed in feeds:
+        state, m = bundle.step_fn(state, feed)
+        losses.append(m["loss"].item())
+    del bundle, state, m
+    free_device_memory()
+    return losses
+
+
+def batch_rows(feeds) -> list:
+    """Batches as a Dataset's rows, in order: {"tokens", "targets"} a row."""
+    return [{k: f[k][r] for k in f} for f in feeds
+            for r in range(len(f["tokens"]))]
+
+
+def data_phase(card: str, device="cuda", nbytes: int = DATA_BYTES,
+               rows_a_batch: int = DATA_BATCH, cfg=None,
+               batch: int = TRAIN_BATCH,
+               stack_steps: int = DATA_STACK_STEPS) -> dict:
+    """[data] (module docstring), in ray_tpu_torch.init(local_mode=True).
+    Returns the stack's launches and the copy's numbers."""
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.data.iterator import iter_stacked_batches
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train.train_step import synthetic_batch
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = cfg or gpt2.gpt2_124m(remat=False)
+    rows = nbytes // (4 * DATA_ROW)
+    t0 = t = time.perf_counter()
+    src = np.random.default_rng(0).random((rows, DATA_ROW), dtype=np.float32)
+    make_s = time.perf_counter() - t
+    n_batches = -(-rows // rows_a_batch)
+    ray_tpu_torch.init(local_mode=True)
+    try:
+        ds = rd.from_numpy(np.array_split(src, DATA_BLOCKS))
+        seen = 0
+        for i, b in enumerate(ds.iter_batches(batch_size=rows_a_batch, device=device,
+                                              prefetch_batches=1)):
+            x = b["data"]
+            if x.device.type != torch.device(device).type or x.dtype != torch.float32:
+                fail(f"[data] batch {i} is {x.dtype} on {x.device}, not f32 on "
+                     f"{device}")
+            if not np.array_equal(x.cpu().numpy(),
+                                  src[i * rows_a_batch:(i + 1) * rows_a_batch]):
+                fail(f"[data] batch {i} differs from its numpy source")
+            seen += 1
+        if seen != n_batches:
+            fail(f"[data] {seen} batches, expected {n_batches}")
+
+        # one batch's pieces: staging into a pinned buffer (host clock),
+        # the pinned and a pageable copy to the card
+        host = src[:rows_a_batch]
+        staging = torch.empty(host.shape, dtype=torch.float32, pin_memory=on_card)
+        view = staging.numpy()
+        np.copyto(view, host)
+        t = time.perf_counter()
+        for _ in range(5):
+            np.copyto(view, host)
+        stage_ms = (time.perf_counter() - t) / 5 * 1e3
+        pinned_ms = device_ms(lambda: staging.to(device, non_blocking=True), device)
+        pageable_ms = device_ms(lambda: torch.as_tensor(host).to(device), device)
+        del staging, view
+
+        # the loop with a fixed device workload a batch
+        w = torch.randn(DATA_ROW, DATA_ROW, device=device,
+                        generator=torch.Generator(device=device).manual_seed(0))
+
+        def work(x):
+            for _ in range(DATA_WORK):
+                y = x @ w
+            return y
+
+        resident = torch.as_tensor(host, device=device)
+        work_ms = device_ms(lambda: work(resident), device, iters=3)
+        del resident
+        loop_ms, next_ms = [], []
+        for _ in range(DATA_LOOPS):
+            sync(device)
+            t = time.perf_counter()
+            batches, inside = ds.iter_batches(
+                batch_size=rows_a_batch, device=device, prefetch_batches=1), 0.0
+            while True:
+                t_next = time.perf_counter()
+                b = next(batches, None)
+                inside += time.perf_counter() - t_next
+                if b is None:
+                    break
+                work(b["data"])
+            sync(device)
+            loop_ms.append((time.perf_counter() - t) * 1e3)
+            next_ms.append(inside * 1e3)
+        del w
+        free_device_memory()
+        numbers = dict(
+            batches=n_batches, batch_bytes=host.nbytes, make_s=make_s,
+            stage_ms=stage_ms, pinned_h2d_ms=pinned_ms,
+            pinned_h2d_gb_s=host.nbytes / pinned_ms / 1e6,
+            pageable_h2d_ms=pageable_ms,
+            pageable_h2d_gb_s=host.nbytes / pageable_ms / 1e6,
+            work_ms=work_ms, loop_ms=loop_ms,
+            loop_ms_median=float(np.median(loop_ms)), loop_next_ms=next_ms,
+            threads=threading.active_count(),
+            sum_copy_and_work_ms=n_batches * (pinned_ms + work_ms),
+            sum_stage_copy_and_work_ms=n_batches * (stage_ms + pinned_ms + work_ms))
+        log(f"[data] {n_batches} batches of {host.nbytes} bytes equal their "
+            f"numpy source in every bit; " + json.dumps(dict(card=card, **numbers)))
+
+        # a stack of GPT-2 steps through multi_step_fn
+        feeds = [synthetic_batch(cfg, batch, seed=i) for i in range(stack_steps)]
+        want = direct_losses(cfg, feeds, device)
+        bundle = gpt2_bundle(cfg, device)
+        stacks = list(iter_stacked_batches(
+            rd.from_items(batch_rows(feeds)).iter_block_refs(), batch_size=batch,
+            steps_per_stack=stack_steps, device=device))
+        if len(stacks) != 1 or stacks[0]["tokens"].shape != (stack_steps, batch, cfg.seq_len):
+            fail(f"[data] stacks {[s['tokens'].shape for s in stacks]}")
+        reset_launches()
+        state, m = bundle.multi_step_fn(bundle.state, stacks[0])
+        got = m["loss"].tolist()
+        launches = launches_since_reset()
+        del bundle, state, m, stacks
+        free_device_memory()
+    finally:
+        ray_tpu_torch.shutdown()
+    expected = cfg.n_layer * stack_steps if on_card else 0
+    log(f"[data] iter_stacked_batches -> multi_step_fn, {stack_steps} steps of "
+        f"B {batch}: losses {got}, step_fn on the numpy batches {want}; "
+        f"launches {launches} (expected {expected} each); {card}")
+    if got != want:
+        fail(f"[data] the stacked steps' losses {got} differ from step_fn's {want}")
+    if launches != {"flash_fwd": expected, "flash_bwd": expected}:
+        fail(f"[data] the stack launched {launches}, expected {expected} each")
+    log(f"[data] took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, **numbers}
+
+
+def data_train_loop(config: dict) -> None:
+    """[data-train]'s train_loop_per_worker: gpt2_bundle(config["cfg"],
+    config["device"]), one step a batch of get_dataset_shard("train")
+    .iter_batches(batch_size=config["batch"], device=config["device"],
+    drop_last=True). Each step reports loss, grad_norm, step, step_ms (host
+    clock around a synchronized step), wait_ms (its batch's next()), the
+    batch's device, this process's pid, the host clock when the first batch
+    was asked for, and the launches of this process since the loop began."""
+    from ray_tpu_torch import train
+
+    reset_launches()
+    device = config["device"]
+    bundle = gpt2_bundle(config["cfg"], device)
+    state = bundle.state
+    sync(device)
+    t_first = time.perf_counter()
+    batches = iter(train.get_dataset_shard("train").iter_batches(
+        batch_size=config["batch"], device=device, drop_last=True))
+    while True:
+        t = time.perf_counter()
+        b = next(batches, None)
+        if b is None:
+            break
+        wait_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        state, m = bundle.step_fn(state, b)
+        sync(device)
+        train.report({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                      "step": state["step"],
+                      "step_ms": (time.perf_counter() - t) * 1e3,
+                      "wait_ms": wait_ms, "device": str(b["tokens"].device),
+                      "pid": os.getpid(), "t_first": t_first,
+                      **launches_since_reset()})
+
+
+def data_train_phase(card: str, cluster_step_ms, device="cuda", cfg=None,
+                     batch: int = TRAIN_BATCH,
+                     steps: int = DATA_TRAIN_STEPS) -> dict:
+    """[data-train] (module docstring) on the running cluster. Returns the
+    worker's launches and its steady step ms."""
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+    from ray_tpu_torch.train.train_step import synthetic_batch
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = cfg or gpt2.gpt2_124m(remat=False)
+    feeds = [synthetic_batch(cfg, batch, seed=i) for i in range(steps)]
+    want = direct_losses(cfg, feeds, device)
+    ds = rd.from_items(batch_rows(feeds))
+    t0 = time.perf_counter()
+    result = TorchTrainer(
+        data_train_loop,
+        train_loop_config={"cfg": cfg, "device": device, "batch": batch},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=on_card),
+        datasets={"train": ds}).fit()
+    fit_s = time.perf_counter() - t0
+    if result.error is not None:
+        fail(f"[data-train] fit failed: {result.error!r}")
+    rows = result.metrics_dataframe
+    got = [r["loss"] for r in rows]
+    launches = {k: rows[-1][k] for k in ("flash_fwd", "flash_bwd")}
+    expected = cfg.n_layer * steps if on_card else 0
+    steady = sorted(r["step_ms"] for r in rows[1:])
+    median = steady[len(steady) // 2]
+    log("[data-train] " + json.dumps(dict(
+        card=card, steps=len(rows), batch=batch, seq_len=cfg.seq_len,
+        losses=got, direct_losses=want, bitwise_equal=got == want,
+        launches=launches, steady_step_ms_median=median,
+        cluster_trainer_step_ms_median=cluster_step_ms,
+        first_step_ms=rows[0]["step_ms"], wait_ms=[r["wait_ms"] for r in rows],
+        setup_s=rows[0]["t_first"] - t0, fit_s=fit_s,
+        devices=sorted({r["device"] for r in rows}), pid=rows[0]["pid"])))
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
+        fail(f"[data-train] reported steps {[r['step'] for r in rows]}")
+    if rows[0]["pid"] == os.getpid():
+        fail("[data-train] the loop ran in this process")
+    if {r["device"].split(":")[0] for r in rows} != {torch.device(device).type}:
+        fail(f"[data-train] batches arrived on {sorted({r['device'] for r in rows})}")
+    if got != want:
+        fail(f"[data-train] the Dataset-fed losses {got} differ from the "
+             f"directly fed {want}")
+    if launches != {"flash_fwd": expected, "flash_bwd": expected}:
+        fail(f"[data-train] the worker launched {launches}, expected {expected} each")
+    return {"launches": launches, "step_ms_median": median}
+
+
+def counting_predictor():
+    """A TorchPredictor class that also returns, on each row, this
+    process's flash launches since it loaded its checkpoint, its pid, the
+    batch's predict ms and the host clock around its load."""
+    from ray_tpu_torch.train.batch_predictor import TorchPredictor
+
+    class CountingPredictor(TorchPredictor):
+        @classmethod
+        def from_checkpoint(cls, checkpoint, **kwargs):
+            t = time.perf_counter()
+            predictor = super().from_checkpoint(checkpoint, **kwargs)
+            sync(predictor._device)
+            predictor._load = (t, time.perf_counter())
+            reset_launches()
+            return predictor
+
+        def predict(self, batch):
+            t = time.perf_counter()
+            out = super().predict(batch)
+            stamps = {"predict_ms": (time.perf_counter() - t) * 1e3,
+                      "pid": os.getpid(), "load_start": self._load[0],
+                      "load_end": self._load[1], **launches_since_reset()}
+            n = len(out["next_token"])
+            out.update({k: np.full(n, v) for k, v in stamps.items()})
+            return out
+
+    return CountingPredictor
+
+
+def data_serve_phase(card: str, main: dict, device="cuda", cfg=None,
+                     n_requests: int = N_REQUESTS,
+                     batch: int = REQUEST_BATCH) -> dict:
+    """[data-serve] (module docstring) on the running cluster: `main` holds
+    [main]'s answers and request ms (serve_path's `keep`). Returns the
+    actor's launches."""
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.data.block import block_concat
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import BatchPredictor, Checkpoint
+    from ray_tpu_torch.train.train_step import param_leaves, synthetic_batch
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = cfg or gpt2.gpt2_124m()
+    params = gpt2.init(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device)
+    ckpt = Checkpoint.from_dict({"params": params})
+    ckpt_bytes = sum(p.numel() * p.element_size() for p in param_leaves(params))
+    t = time.perf_counter()
+    ref = ray_tpu_torch.put(ckpt)
+    put_s = time.perf_counter() - t
+    del ref
+    tokens = [synthetic_batch(cfg, batch, seed=i)["tokens"] for i in range(n_requests)]
+    ds = rd.from_items([{"id": i * batch + r, "tokens": tok[r]}
+                        for i, tok in enumerate(tokens) for r in range(batch)],
+                       parallelism=n_requests)
+    out = BatchPredictor.from_checkpoint(
+        ckpt, counting_predictor(), apply_fn=serve_apply_fn(gpt2, cfg),
+        device=device,
+    ).predict(ds, batch_size=batch, num_workers=1, keep_columns=("id",))
+    t0 = time.perf_counter()
+    blocks, arrivals = [], []
+    for r in out.iter_block_refs():
+        blocks.append(ray_tpu_torch.get(r, timeout=600))
+        arrivals.append(time.perf_counter())
+    del ckpt, params
+    free_device_memory()
+    rows = block_concat(blocks)
+    order = np.argsort(rows["id"])
+    rows = {k: v[order] for k, v in rows.items()}
+    if rows["id"].tolist() != list(range(n_requests * batch)):
+        fail(f"[data-serve] answered ids {rows['id'].tolist()}")
+    differ = [i for i, ans in enumerate(main["answers"]) if not all(
+        rows[k][i * batch:(i + 1) * batch].dtype == ans[k].dtype
+        and np.array_equal(rows[k][i * batch:(i + 1) * batch], ans[k])
+        for k in ("next_token", "logit"))]
+    launches = {k: int(rows[k].max()) for k in ("flash_fwd", "flash_bwd")}
+    expected = cfg.n_layer * n_requests if on_card else 0
+    intervals = np.diff(arrivals) * 1e3
+    interval_ms = float(np.median(intervals)) if len(intervals) else None
+    predict_ms = float(np.median(rows["predict_ms"][::batch]))
+    log("[data-serve] " + json.dumps(dict(
+        card=card, requests=n_requests, batch=batch, seq_len=cfg.seq_len,
+        differing_requests=differ, launches=launches,
+        batch_predict_ms_median=predict_ms, batch_interval_ms_median=interval_ms,
+        main_request_ms=main["request_ms"],
+        rows_per_s=batch / (interval_ms / 1e3) if interval_ms else None,
+        checkpoint_bytes=ckpt_bytes, checkpoint_put_s=put_s,
+        first_answer_s=arrivals[0] - t0,
+        actor_start_to_load_s=float(rows["load_start"][0]) - t0,
+        load_to_device_s=float(rows["load_end"][0] - rows["load_start"][0]),
+        pids=sorted({int(p) for p in rows["pid"]}))))
+    if os.getpid() in {int(p) for p in rows["pid"]}:
+        fail("[data-serve] the predictor ran in this process")
+    if differ:
+        fail(f"[data-serve] requests {differ} differ from [main]'s answers")
+    if launches != {"flash_fwd": expected, "flash_bwd": 0}:
+        fail(f"[data-serve] the actor launched {launches}, expected flash_fwd "
+             f"{expected} and flash_bwd 0")
+    return {"launches": launches}
+
+
+def timed_updates(group) -> list:
+    """Wraps a LearnerGroup's update with a host clock (its result read
+    back, so synchronized); returns the list of seconds it fills."""
+    seconds, update = [], group.update
+
+    def timed(batch):
+        t = time.perf_counter()
+        out = update(batch)
+        seconds.append(time.perf_counter() - t)
+        return out
+    group.update = timed
+    return seconds
+
+
+def rllib_remote_phase(card: str, inline: dict, device="cuda") -> dict:
+    """[rllib-remote] (module docstring) on the running cluster: `inline`
+    is [rllib-ppo]'s result."""
+    from ray_tpu_torch.rllib.algorithms import (
+        DQNConfig, IMPALAConfig, PPOConfig, SACConfig,
+    )
+    from ray_tpu_torch.rllib.learner import LearnerGroup, PPOLearner
+    from ray_tpu_torch.rllib.models import tree_leaves
+
+    out, want = {}, torch.device(device).type
+    s = time.perf_counter()
+    config = (PPOConfig()
+            .environment("CartPole-v1",
+                         num_envs_per_worker=RLLIB_NUM_ENVS // RLLIB_REMOTE_WORKERS)
+            .rollouts(num_rollout_workers=RLLIB_REMOTE_WORKERS,
+                      rollout_fragment_length=RLLIB_PPO_FRAGMENT)
+            .training(**RLLIB_PPO_TRAINING)
+            .resources(learner_device=device)
+            .debugging(seed=0))
+    # the remote learner's actor first: it starts (a worker's torch import,
+    # its CUDA context) while PPO trains
+    from ray_tpu_torch.rllib.env.vector_env import make_vector_env
+
+    probe = make_vector_env("CartPole-v1", 1)
+    kw = dict(obs_dim=probe.obs_dim, num_actions=probe.num_actions,
+              hiddens=tuple(config.hiddens), lr=config.lr,
+              grad_clip=config.grad_clip, num_epochs=config.num_epochs,
+              minibatch_size=config.minibatch_size, seed=config.seed,
+              device=device)
+    remote = LearnerGroup(PPOLearner, kw, mode="remote")
+    algo = config.build()
+    try:
+        if algo.local_runner is not None or len(algo.workers) != RLLIB_REMOTE_WORKERS:
+            fail(f"[rllib-remote] PPO built {len(algo.workers)} runner actors "
+                 f"and a local runner {algo.local_runner}")
+        where = {t.device.type for t in tree_leaves(algo.learner_group._learner.params)}
+        if where != {want}:
+            fail(f"[rllib-remote] the learner holds its parameters on {where}")
+        result, it, iteration_s = {}, 0, []
+        while result.get("timesteps_total", 0) < RLLIB_PPO_MAX_STEPS:
+            it += 1
+            result = algo.train()
+            iteration_s.append(result["time_this_iter_s"])
+            log(f"[rllib-remote] ppo iter {it}: reward "
+                f"{result['episode_reward_mean']:.2f} "
+                f"({result['episodes_this_window']} episodes), timesteps "
+                f"{result['timesteps_total']}, env-steps/s "
+                f"{result['timesteps_total'] / result['time_total_s']:.1f}")
+            if (result["episode_reward_mean"] >= RLLIB_TARGET_REWARD
+                    and result["episodes_this_window"] >= RLLIB_MIN_EPISODES):
+                break
+        else:
+            fail(f"[rllib-remote] PPO's episode_reward_mean "
+                 f"{result['episode_reward_mean']:.2f} < {RLLIB_TARGET_REWARD} "
+                 f"after {result['timesteps_total']} env steps")
+        def steady(seconds):
+            """env-steps/s after the first iteration (whose time holds the
+            runners' start): a fixed train batch an iteration"""
+            if not seconds or len(seconds) < 2:
+                return None
+            return (result["timesteps_total"] / len(iteration_s)
+                    * (len(seconds) - 1) / sum(seconds[1:]))
+
+        out["ppo"] = {"iterations": it, "env_steps": result["timesteps_total"],
+                      "env_steps_per_s": result["timesteps_total"] / result["time_total_s"],
+                      "steady_env_steps_per_s": steady(iteration_s),
+                      "first_iteration_s": iteration_s[0]}
+        log("[rllib-remote] ppo " + json.dumps(dict(
+            card=card, runners=RLLIB_REMOTE_WORKERS, **out["ppo"],
+            inline_iterations=inline["iterations"],
+            inline_env_steps_per_s=inline.get("env_steps_per_s"),
+            inline_steady_env_steps_per_s=steady(inline.get("iteration_s")),
+            inline_first_iteration_s=(inline.get("iteration_s") or [None])[0])))
+        batch = algo.sample_batch()
+    finally:
+        algo.stop()
+
+    # learner_mode="remote" (a num_gpus=1 actor on the card): one update on
+    # that batch against the same update by a local learner
+    def two_updates(group):
+        """Two updates on the batch: both metrics, the weights after, and
+        the second (warm) update's ms."""
+        metrics = [group.update(batch)]
+        t = time.perf_counter()
+        metrics.append(group.update(batch))
+        return metrics, group.get_weights(), (time.perf_counter() - t) * 1e3
+
+    try:
+        remote.get_weights()        # started during the PPO run
+        got, got_weights, remote_ms = two_updates(remote)
+    finally:
+        remote.shutdown()
+    wanted, want_weights, local_ms = two_updates(LearnerGroup(PPOLearner, kw))
+    free_device_memory()
+    same = got == wanted and all(np.array_equal(a, b) for a, b in zip(
+        tree_leaves(got_weights), tree_leaves(want_weights)))
+    out["remote_learner"] = {"update_ms": remote_ms, "local_update_ms": local_ms}
+    log("[rllib-remote] learner_mode='remote' " + json.dumps(dict(
+        card=card, rows=len(batch), bitwise_equal=same, metrics=got[0],
+        **out["remote_learner"])))
+    if not same:
+        fail(f"[rllib-remote] the remote learner's update {got} differs from "
+             f"the local one's {wanted}")
+
+    # IMPALA's asynchronous loop
+    imp = RLLIB_REMOTE_IMPALA
+    algo = (IMPALAConfig()
+            .environment(imp["env"], num_envs_per_worker=imp["num_envs"])
+            .rollouts(num_rollout_workers=RLLIB_REMOTE_WORKERS,
+                      rollout_fragment_length=imp["fragment"])
+            .training(updates_per_iteration=imp["updates_per_iteration"])
+            .resources(learner_device=device)
+            .debugging(seed=imp["seed"])
+            .build())
+    try:
+        seconds = timed_updates(algo.learner_group)
+        results = [algo.train() for _ in range(imp["iterations"])]
+    finally:
+        algo.stop()
+    m2 = results[1]
+    out["impala"] = {"env_steps_per_s": [r["env_steps_per_sec"] for r in results],
+                     "updates": len(seconds),
+                     "updates_per_s": len(seconds) / max(sum(seconds), 1e-9)}
+    log("[rllib-remote] impala async " + json.dumps(dict(
+        card=card, env=imp["env"], workers=RLLIB_REMOTE_WORKERS,
+        timesteps_this_iter=[r["timesteps_this_iter"] for r in results],
+        total_loss=[r["total_loss"] for r in results], **out["impala"])))
+    if not (m2["timesteps_this_iter"] > 0 and m2["env_steps_per_sec"] > 0
+            and "total_loss" in m2 and math.isfinite(m2["total_loss"])):
+        fail(f"[rllib-remote] IMPALA's second iteration: {m2}")
+
+    # DQN and SAC with sampling workers
+    for tag, config_cls, fragment, training in (
+            ("dqn", DQNConfig, RLLIB_DQN_FRAGMENT, RLLIB_DQN_TRAINING),
+            ("sac", SACConfig, RLLIB_SAC_FRAGMENT, RLLIB_SAC_TRAINING)):
+        round_rows = RLLIB_REMOTE_WORKERS * RLLIB_OFFPOLICY_ENVS * fragment
+        algo = (rllib_offpolicy_config(config_cls, fragment,
+                                       {**training, "learning_starts": round_rows},
+                                       device)
+                .rollouts(num_rollout_workers=RLLIB_REMOTE_WORKERS).build())
+        try:
+            seconds = timed_updates(algo.learner_group)
+            results = [algo.train() for _ in range(RLLIB_REMOTE_OFFPOLICY_ITERS)]
+        finally:
+            algo.stop()
+        intensity = algo.algo_config.train_intensity
+        out[tag] = {"updates": len(seconds),
+                    "updates_per_s": len(seconds) / max(sum(seconds), 1e-9),
+                    "update_ms": 1e3 * float(np.median(seconds)) if seconds else None}
+        log(f"[rllib-remote] {tag} " + json.dumps(dict(
+            card=card, workers=RLLIB_REMOTE_WORKERS,
+            timesteps_this_iter=[r["timesteps_this_iter"] for r in results],
+            loss=results[-1].get("loss"), **out[tag])))
+        if [r["timesteps_this_iter"] for r in results] != \
+                [round_rows] * RLLIB_REMOTE_OFFPOLICY_ITERS:
+            fail(f"[rllib-remote] {tag} sampled "
+                 f"{[r['timesteps_this_iter'] for r in results]}")
+        if len(seconds) != intensity * RLLIB_REMOTE_OFFPOLICY_ITERS or not \
+                math.isfinite(results[-1]["loss"]):
+            fail(f"[rllib-remote] {tag}: {len(seconds)} updates, loss "
+                 f"{results[-1].get('loss')}")
+    log(f"[rllib-remote] phase took {time.perf_counter() - s:.1f} s")
+    return out
+
+
+def cluster_data_phases(card: str, data: dict, cluster_step_ms, device="cuda",
+                        cfg=None, batch: int = TRAIN_BATCH) -> dict:
+    """[data-train], [data-serve] and [rllib-remote] on the running
+    cluster, each one's seconds printed. `data` holds [main]'s kept answers
+    ("serve") and [rllib-ppo]'s result ("ppo"), and for a small rehearsal
+    the serving config and request shape ("serve_cfg", "requests",
+    "request_batch") and the train steps ("steps")."""
+    out = {}
+    for tag, fn in (
+            ("data-train", lambda: data_train_phase(
+                card, cluster_step_ms, device, cfg, batch,
+                data.get("steps", DATA_TRAIN_STEPS))),
+            ("data-serve", lambda: data_serve_phase(
+                card, data["serve"], device, data.get("serve_cfg"),
+                data.get("requests", N_REQUESTS),
+                data.get("request_batch", REQUEST_BATCH))),
+            ("rllib-remote", lambda: rllib_remote_phase(card, data["ppo"], device))):
+        free_device_memory()
+        s = time.perf_counter()
+        out[tag] = fn()
+        log(f"[{tag}] took {time.perf_counter() - s:.1f} s")
+    return out
+
+
 def cluster_teardown(ctx: dict, device="cuda") -> None:
     """[cluster]'s end: shutdown(), then nothing the cluster spawned left in
     /proc (waited for up to 10 s). nvidia-smi's compute apps are printed
@@ -4467,9 +5130,12 @@ def cluster_teardown(ctx: dict, device="cuda") -> None:
 def cluster_phases(card: str, trainer: dict, train_step_ms=None,
                    world_one_gpt2=None, device="cuda", init_kwargs=None,
                    cfg=None, batch: int = TRAIN_BATCH, shape=CORE_SHAPE,
-                   transfer_bytes: int = SERIALIZE_BYTES) -> dict:
-    """[cluster], [cluster-trainer] on its cluster, then its teardown; the
-    cluster stops whatever fails. Returns both phases' launches."""
+                   transfer_bytes: int = SERIALIZE_BYTES,
+                   data: Optional[dict] = None) -> dict:
+    """[cluster], [cluster-trainer] on its cluster, then with `data`
+    (cluster_data_phases) [data-train], [data-serve] and [rllib-remote] on
+    the same cluster, then its teardown; the cluster stops whatever fails.
+    Returns the phases' launches."""
     import ray_tpu_torch
 
     ctx = None
@@ -4479,12 +5145,15 @@ def cluster_phases(card: str, trainer: dict, train_step_ms=None,
                                     cfg, batch)
         multi_card_leases(device)
         multi_card_trainer(card, world_one_gpt2)
+        more = {} if data is None else cluster_data_phases(
+            card, data, out["step_ms_median"], device, cfg, batch)
     except BaseException:
         ray_tpu_torch.shutdown()
         raise
     cluster_teardown(ctx, device)
     return {"cluster": ctx["launches"], "cluster_trainer": out["launches"],
-            "cluster_trainer_step_ms_median": out["step_ms_median"]}
+            "cluster_trainer_step_ms_median": out["step_ms_median"],
+            **{k: v["launches"] for k, v in more.items() if "launches" in v}}
 
 
 def main() -> int:
@@ -4497,6 +5166,7 @@ def main() -> int:
                         help="also time flash_bwd built from SRC (same C "
                              "entry point) against the current one")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
@@ -4524,9 +5194,10 @@ def main() -> int:
     )
 
     free_device_memory()
+    main_answers = {}
     serve = serve_path(card, args.profile, "main", "gpt2_124m", gpt2,
                        gpt2.gpt2_124m(), N_REQUESTS, REQUEST_BATCH,
-                       (LOGITS_MAX_TOL, LOGITS_MEAN_TOL))
+                       (LOGITS_MAX_TOL, LOGITS_MEAN_TOL), keep=main_answers)
     free_device_memory()
     train = train_path(card, args.profile, "train", "gpt2_124m", gpt2,
                        make_gpt2_train_step, gpt2.gpt2_124m(remat=False),
@@ -4613,7 +5284,7 @@ def main() -> int:
                     for off in sorted(rows, key=int)}}
         return out
 
-    rllib_phase(card, args.profile)
+    rllib = rllib_phase(card, args.profile)
     # the runtime and Train on it, after the model paths (their step times
     # stay comparable with earlier runs)
     free_device_memory()
@@ -4621,9 +5292,14 @@ def main() -> int:
     free_device_memory()
     trainer = trainer_phase(card, train["step_ms_median"])
     # the multi-process runtime: worker processes of a one-node cluster
+    # the Data layer in the in-process runtime
+    free_device_memory()
+    data = data_phase(card)
     free_device_memory()
     cluster = cluster_phases(card, trainer, train["step_ms_median"],
-                             par["world_one_gpt2"])
+                             par["world_one_gpt2"],
+                             data={"serve": main_answers,
+                                   "ppo": rllib["rllib-ppo"]})
 
     # top level: GPT-2's training path at its own shape; by_path: each main
     # path at its own shape with its own launches
@@ -4656,6 +5332,8 @@ def main() -> int:
         "cluster": numbers(fwd["main"], cluster["cluster"]["flash_fwd"]),
         "cluster_trainer": numbers(bwd["fwd_main"],
                                    cluster["cluster_trainer"]["flash_fwd"]),
+        "data_train": numbers(bwd["fwd_main"], cluster["data-train"]["flash_fwd"]),
+        "data_serve": numbers(fwd["main"], cluster["data-serve"]["flash_fwd"]),
     }
     bwd_paths = {
         "train": numbers(bwd["main"], train["launches"]["flash_bwd"]),
@@ -4682,6 +5360,7 @@ def main() -> int:
         "cluster": numbers(bwd["core"], cluster["cluster"]["flash_bwd"]),
         "cluster_trainer": numbers(bwd["main"],
                                    cluster["cluster_trainer"]["flash_bwd"]),
+        "data_train": numbers(bwd["main"], cluster["data-train"]["flash_bwd"]),
     }
     log(json.dumps({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
@@ -4694,6 +5373,8 @@ def main() -> int:
         "replaces": "ray_tpu/ops/attention.py:220",
         "status": "ported", **bwd_paths["train"], "by_path": bwd_paths,
     }], "to_port": []}))
+    log(f"[smoke] the whole smoke took {time.perf_counter() - t_start:.1f} s; "
+        f"{card}")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

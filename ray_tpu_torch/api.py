@@ -94,7 +94,7 @@ def init(
         if address and address.startswith("ray://"):
             raise NotImplementedError(
                 "the thin client (ray://) comes with the multi-node slice 2b "
-                "of the multi-process runtime (ROADMAP Queue A item 5)"
+                "of the multi-process runtime (ROADMAP Queue A item 2)"
             )
         if namespace:
             _worker.namespace = namespace

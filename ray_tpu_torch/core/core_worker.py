@@ -201,6 +201,9 @@ class CoreWorker:
         # oid → {"pending": tasks holding it as an arg, "borrowers": addrs}
         self._owned: Dict[bytes, dict] = {}
         self._task_arg_pins: Dict[TaskID, List[bytes]] = {}
+        # actor id → its creation task: the constructor's args spilled to
+        # the store stay pinned while the actor may still (re)start
+        self._actor_creation_tasks: Dict[bytes, TaskID] = {}
         self._return_oid_task: Dict[bytes, TaskID] = {}
         self._task_live_returns: Dict[TaskID, int] = {}  # unfreed returns/task
         self._reported_borrows: set = set()           # borrower side
@@ -1680,6 +1683,11 @@ class CoreWorker:
             is_actor_creation=True,
             actor_options={"max_concurrency": options.max_concurrency},
         )
+        # an argument past the inline limit went to the store as a ref that
+        # nothing else holds: without a pin it is freed before the actor's
+        # worker fetches it, and the constructor fails (the actor is dead)
+        self._pin_task_args(spec.task_id, enc_args, enc_kwargs)
+        self._actor_creation_tasks[actor_id.binary()] = spec.task_id
         reply = self.io.run(
             self._gcs_call_retrying(
                 "create_actor",
@@ -1957,6 +1965,10 @@ class CoreWorker:
 
             self.io.spawn(fire())
         self._actor_addr_cache.pop(actor_id.binary(), None)
+        if no_restart:
+            creation = self._actor_creation_tasks.pop(actor_id.binary(), None)
+            if creation is not None:
+                self.io.call_batched(self._unpin_task_args, creation)
 
     def get_named_actor(self, name: str, namespace: Optional[str]) -> ActorID:
         info = self.io.run(

@@ -1,13 +1,14 @@
 """RLlib-equivalent RL stack of the PyTorch port.
 
-Counterpart of ray_tpu/rllib: rollouts on the host CPU (EnvRunner), SGD
-on the card (TreeLearner and its subclasses, in-process through
-LearnerGroup), algorithms as Trainables built by a fluent config: PPO
-(single- and multi-agent) and IMPALA (algorithms/ppo.py, impala.py), the
-off-policy DQN and SAC with replay buffers on the host
-(algorithms/dqn.py, sac.py, replay_buffers.py), and the offline BC,
-trained from JSON experience files (algorithms/bc.py, offline.py). See
-algorithm.py for what of the reference's topology is ported.
+Counterpart of ray_tpu/rllib: rollouts on the host CPU (EnvRunner,
+inline or as actors), SGD on the card (TreeLearner and its subclasses,
+in-process or on one actor through LearnerGroup), algorithms as
+Trainables built by a fluent config: PPO (single- and multi-agent) and
+IMPALA (algorithms/ppo.py, impala.py), the off-policy DQN and SAC with
+replay buffers on the host (algorithms/dqn.py, sac.py,
+replay_buffers.py), and the offline BC, trained from JSON experience
+files (algorithms/bc.py, offline.py). See algorithm.py for the
+topologies.
 """
 
 import ray_tpu_torch._vector_math  # noqa: F401  (exact first vector math)

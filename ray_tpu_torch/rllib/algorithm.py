@@ -4,14 +4,13 @@ Counterpart of ray_tpu/rllib/algorithm.py: every algorithm is a Trainable
 (train()/save()/restore()) built by a fluent config, and
 `training_step()` is the per-iteration hook each algorithm implements.
 
-The port runs the reference's inline path: rollouts in this process on
-the host CPU (num_rollout_workers=0, one local EnvRunner) and the learner
-in this process (learner_mode="local") on `learner_device`, which
-`resources()` sets and which defaults to "cuda". The reference's remote
-topologies (EnvRunner actors, a remote learner, IMPALA's asynchronous
-loop) stand on the runtime planes, which the port has not copied yet:
-building such a config raises NotImplementedError naming ROADMAP.md
-Queue A item 5.
+Rollouts run on the host CPU: inline in this process
+(num_rollout_workers=0, one local EnvRunner) or on num_rollout_workers
+EnvRunner actors, CPU worker processes of the runtime that never open
+the card. The learner runs on `learner_device`, which `resources()` sets
+and which defaults to "cuda": in this process (learner_mode="local") or
+on one learner actor (learner_mode="remote", learner.py's LearnerGroup),
+which holds a GPU lease when its device is a card.
 """
 
 from __future__ import annotations
@@ -21,7 +20,6 @@ from typing import Any, Dict, List, Optional, Type
 
 import numpy as np
 
-from ray_tpu_torch.rllib.learner import REMOTE_REFUSAL
 from ray_tpu_torch.tune.trainable import Trainable
 
 
@@ -47,8 +45,11 @@ class AlgorithmConfig:
         self.hiddens = (64, 64)
         self.seed = 0
         # learner placement
-        self.learner_mode = "local"   # "local" ("remote" is refused)
+        self.learner_mode = "local"   # "local" | "remote" (one learner actor)
         self.learner_device = "cuda"  # where the learner's SGD runs
+        # the remote learner actor's options (LearnerGroup adds a GPU
+        # lease of one card when learner_device is a card)
+        self.learner_remote_options: Dict[str, Any] = {"num_cpus": 1}
         # multi-agent (config.multi_agent()): policy ids + agent→policy map
         self.policies: Optional[List[str]] = None
         self.policy_mapping_fn: Optional[Any] = None
@@ -96,11 +97,14 @@ class AlgorithmConfig:
         return self
 
     def resources(self, learner_mode: Optional[str] = None,
-                  learner_device: Optional[str] = None):
+                  learner_device: Optional[str] = None,
+                  learner_remote_options: Optional[Dict[str, Any]] = None):
         if learner_mode is not None:
             self.learner_mode = learner_mode
         if learner_device is not None:
             self.learner_device = learner_device
+        if learner_remote_options is not None:
+            self.learner_remote_options = learner_remote_options
         return self
 
     def debugging(self, seed: Optional[int] = None):
@@ -130,7 +134,7 @@ class AlgorithmConfig:
 
 
 class Algorithm(Trainable):
-    """Base driver: owns the local rollout runner + a LearnerGroup.
+    """Base driver: owns rollout workers + a LearnerGroup.
 
     Subclasses implement training_step() returning per-iteration metrics.
     Tune integration comes from Trainable (train/save/restore).
@@ -143,19 +147,7 @@ class Algorithm(Trainable):
             self.algo_config = config
         else:
             self.algo_config = self.config_class().update_from_dict(dict(config or {}))
-        self._refuse_remote(self.algo_config)
         super().__init__(self.algo_config.to_dict())
-
-    def _refuse_remote(self, cfg: AlgorithmConfig) -> None:
-        """The remote topologies are not ported (module docstring);
-        subclasses name their own."""
-        if cfg.num_rollout_workers > 0:
-            raise NotImplementedError(
-                f"num_rollout_workers={cfg.num_rollout_workers} (EnvRunner "
-                f"actors) {REMOTE_REFUSAL}")
-        if cfg.learner_mode == "remote":
-            raise NotImplementedError(
-                f"learner_mode='remote' (one learner actor) {REMOTE_REFUSAL}")
 
     # -- setup -------------------------------------------------------------- #
     def setup(self, config: Dict[str, Any]) -> None:
@@ -168,8 +160,7 @@ class Algorithm(Trainable):
         probe = make_vector_env(cfg.env, 1)
         self.obs_dim, self.num_actions = probe.obs_dim, probe.num_actions
 
-        self.local_runner = EnvRunner(
-            worker_index=0,
+        runner_kwargs = dict(
             env=cfg.env,
             num_envs=cfg.num_envs_per_worker,
             hiddens=tuple(cfg.hiddens),
@@ -179,8 +170,27 @@ class Algorithm(Trainable):
             # algorithm-specific runner knobs (e.g. IMPALA's vtrace batches)
             **self._runner_kwargs_extra(),
         )
+        self._start_runners(EnvRunner, runner_kwargs)
         self.learner_group = self._make_learner_group()
         self._weights = self.learner_group.get_weights()
+
+    def _start_runners(self, runner_cls, runner_kwargs: Dict[str, Any]) -> None:
+        """num_rollout_workers actors of runner_cls (CPU processes:
+        num_cpus=1 and no GPU lease), or one local runner when there are
+        none."""
+        cfg = self.algo_config
+        if cfg.num_rollout_workers > 0:
+            import ray_tpu_torch
+
+            remote_runner = ray_tpu_torch.remote(num_cpus=1)(runner_cls)
+            self.workers = [
+                remote_runner.remote(worker_index=i + 1, **runner_kwargs)
+                for i in range(cfg.num_rollout_workers)
+            ]
+            self.local_runner = None
+        else:
+            self.workers = []
+            self.local_runner = runner_cls(worker_index=0, **runner_kwargs)
 
     def _make_learner_group(self):
         raise NotImplementedError
@@ -190,22 +200,39 @@ class Algorithm(Trainable):
         return {}
 
     # -- rollout helpers ---------------------------------------------------- #
+    def sample_round(self, weights, **sample_kwargs) -> List[Any]:
+        """One fragment from every runner with `weights`: the remote
+        runners' in parallel, the weights `put` once for the round; the
+        local runner's inline. Returns their (batch, metrics) pairs."""
+        cfg = self.algo_config
+        if self.workers:
+            import ray_tpu_torch
+
+            weights_ref = ray_tpu_torch.put(weights)
+            return ray_tpu_torch.get([
+                w.sample.remote(cfg.rollout_fragment_length, weights_ref,
+                                **sample_kwargs)
+                for w in self.workers
+            ])
+        return [self.local_runner.sample(
+            cfg.rollout_fragment_length, weights, **sample_kwargs)]
+
     def sample_batch(self):
-        """Synchronous sampling on the local runner (the reference's
-        synchronous_parallel_sample with no workers): rounds of
-        fragment-length rollouts until train_batch_size rows."""
+        """Synchronous parallel sampling across all runners.
+
+        Parity: rllib/execution/rollout_ops.py synchronous_parallel_sample.
+        Loops rounds of fragment-length rollouts until train_batch_size rows.
+        """
         from ray_tpu_torch.rllib.sample_batch import SampleBatch
 
         cfg = self.algo_config
         batches: List[SampleBatch] = []
         total = 0
         while total < cfg.train_batch_size:
-            batch, metrics = self.local_runner.sample(
-                cfg.rollout_fragment_length, self._weights
-            )
-            batches.append(batch)
-            total += len(batch)
-            self._merge_episode_metrics(metrics)
+            for batch, metrics in self.sample_round(self._weights):
+                batches.append(batch)
+                total += len(batch)
+                self._merge_episode_metrics(metrics)
         return SampleBatch.concat_samples(batches)
 
     def _merge_episode_metrics(self, metrics: Dict[str, Any]) -> None:
@@ -287,3 +314,11 @@ class Algorithm(Trainable):
     def cleanup(self) -> None:
         for g in self._all_learner_groups().values():
             g.shutdown()
+        if getattr(self, "workers", None):
+            import ray_tpu_torch
+
+            for w in self.workers:
+                try:
+                    ray_tpu_torch.kill(w)
+                except Exception:  # noqa: BLE001 - already dead / shutdown race
+                    pass

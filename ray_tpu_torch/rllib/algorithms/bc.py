@@ -7,7 +7,8 @@ on the host CPU; the learner runs on `learner_device` (the card unless
 the caller asks for the CPU), one cross-entropy step on each sampled
 batch. Each iteration ends with an evaluation rollout on the local runner
 (host CPU, categorical acting), so episode_reward_mean is comparable to
-the online algorithms' reports.
+the online algorithms' reports; with rollout workers, as the reference,
+it has none.
 """
 
 from __future__ import annotations
@@ -89,6 +90,7 @@ class BC(Algorithm):
                 device=cfg.learner_device,
             ),
             mode=cfg.learner_mode,
+            remote_options=cfg.learner_remote_options,
         )
 
     def training_step(self) -> Dict[str, Any]:
@@ -100,8 +102,11 @@ class BC(Algorithm):
         self._weights = self.learner_group.get_weights()
 
         # evaluation rollout with the cloned policy (categorical acting)
-        _, ep = self.local_runner.sample(cfg.rollout_fragment_length, self._weights)
-        self._merge_episode_metrics(ep)
+        if self.local_runner is not None:
+            _, ep = self.local_runner.sample(
+                cfg.rollout_fragment_length, self._weights
+            )
+            self._merge_episode_metrics(ep)
         stats = self._episode_stats()
         stats.update(metrics)
         stats["dataset_size"] = len(self.buffer)

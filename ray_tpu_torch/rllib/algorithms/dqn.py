@@ -1,7 +1,7 @@
 """DQN: off-policy Q-learning with replay, target network, and double-Q.
 
 Counterpart of ray_tpu/rllib/algorithms/dqn.py. The rollout loop
-(epsilon-greedy, on the local runner) and the replay buffer stay on the
+(epsilon-greedy, on the runners) and the replay buffer stay on the
 host CPU, as in the reference: they are branchy row bookkeeping, not
 tensor math. The learner runs on `learner_device` (the card unless the
 caller asks for the CPU): each update is one optimizer step on the whole
@@ -162,15 +162,15 @@ def make_replay_buffer(cfg: AlgorithmConfig) -> ReplayBuffer:
 
 def replay_training_step(algo: Algorithm, **sample_kwargs) -> Dict[str, Any]:
     """DQN's and SAC's iteration (the reference writes it out in each):
-    one fragment from the local runner into the buffer, then, once the
-    buffer holds learning_starts rows, train_intensity updates on sampled
-    batches, each update's |TD| errors fed back as priorities."""
+    one fragment from every runner into the buffer (sample_round), then,
+    once the buffer holds learning_starts rows, train_intensity updates on
+    sampled batches, each update's |TD| errors fed back as priorities."""
     cfg = algo.algo_config
-    batch, metrics = algo.local_runner.sample(
-        cfg.rollout_fragment_length, algo._weights, **sample_kwargs)
-    algo.buffer.add(batch)
-    algo._env_steps += len(batch)
-    algo._merge_episode_metrics(metrics)
+    outs = algo.sample_round(algo._weights, **sample_kwargs)
+    for batch, metrics in outs:
+        algo.buffer.add(batch)
+        algo._env_steps += len(batch)
+        algo._merge_episode_metrics(metrics)
 
     learn_metrics: Dict[str, Any] = {}
     if len(algo.buffer) >= cfg.learning_starts:
@@ -186,7 +186,7 @@ def replay_training_step(algo: Algorithm, **sample_kwargs) -> Dict[str, Any]:
     stats = algo._episode_stats()
     stats.update(learn_metrics)
     stats["buffer_size"] = len(algo.buffer)
-    stats["timesteps_this_iter"] = len(batch)
+    stats["timesteps_this_iter"] = sum(len(b) for b, _ in outs)
     return stats
 
 
@@ -221,6 +221,7 @@ class DQN(Algorithm):
                 device=cfg.learner_device,
             ),
             mode=cfg.learner_mode,
+            remote_options=cfg.learner_remote_options,
         )
 
     def _epsilon(self) -> float:

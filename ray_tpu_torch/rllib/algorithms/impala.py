@@ -1,14 +1,16 @@
-"""IMPALA: v-trace-corrected actor-critic, sampled inline.
+"""IMPALA: async actors stream v-trace-corrected batches at a hot learner.
 
-Counterpart of ray_tpu/rllib/algorithms/impala.py's synchronous path
-(`_training_step_sync`, the reference's num_rollout_workers=0 case):
-each iteration runs updates_per_iteration rounds of sample a fragment on
-the local runner (host CPU, "vtrace" batches: time-major rows, behavior
-logp and bootstrap obs), update the learner (on `learner_device`, the
-card by default) with one v-trace step, hand its weights back. The
-reference's asynchronous loop, rollout actors streaming batches at the
-learner with stale weights, stands on the runtime planes and is refused
-(ROADMAP.md Queue A item 5).
+Counterpart of ray_tpu/rllib/algorithms/impala.py. Parity:
+rllib/algorithms/impala/impala.py:554 (`IMPALA.training_step`) — the
+async topology: every rollout worker always has a sample() request in
+flight; the learner consumes whichever batch lands first and pushes fresh
+weights back only to the worker being re-armed. Actors therefore act with
+stale policies — the v-trace importance correction (vtrace.py) is what
+makes the off-policy gradient sound. Rollout actors are CPU processes;
+the learner (on `learner_device`, the card by default) takes one v-trace
+step a batch. With num_rollout_workers=0 it samples inline
+(`_training_step_sync`): sample a fragment on the local runner, update,
+hand the weights back, updates_per_iteration times.
 """
 
 from __future__ import annotations
@@ -17,9 +19,7 @@ import time
 from typing import Any, Dict
 
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.learner import (
-    REMOTE_REFUSAL, IMPALALearner, LearnerGroup,
-)
+from ray_tpu_torch.rllib.learner import IMPALALearner, LearnerGroup
 
 
 class IMPALAConfig(AlgorithmConfig):
@@ -29,7 +29,8 @@ class IMPALAConfig(AlgorithmConfig):
         self.entropy_coeff = 0.01
         self.clip_rho_threshold = 1.0
         self.clip_c_threshold = 1.0
-        # sample-and-update rounds per training_step() call
+        # updates consumed per training_step() call (async: each waits only
+        # for the next ready batch)
         self.updates_per_iteration = 8
         self.lr = 5e-4
         self.num_epochs = 1            # IMPALA: single pass per batch
@@ -39,16 +40,9 @@ class IMPALAConfig(AlgorithmConfig):
 class IMPALA(Algorithm):
     config_class = IMPALAConfig
 
-    def _refuse_remote(self, cfg: AlgorithmConfig) -> None:
-        if cfg.num_rollout_workers > 0:
-            raise NotImplementedError(
-                f"IMPALA with num_rollout_workers={cfg.num_rollout_workers} "
-                f"(its asynchronous training_step over rollout actors) "
-                f"{REMOTE_REFUSAL}")
-        super()._refuse_remote(cfg)
-
     def setup(self, config: Dict[str, Any]) -> None:
         super().setup(config)
+        self._inflight: Dict[Any, Any] = {}   # ref -> worker
         self._steps_sampled = 0
         self._t_start = time.monotonic()
 
@@ -75,11 +69,54 @@ class IMPALA(Algorithm):
         )
         return LearnerGroup(
             IMPALALearner, learner_kwargs, mode=cfg.learner_mode,
+            remote_options=cfg.learner_remote_options,
         )
 
+    # ------------------------------------------------------------- async loop
+    def _arm(self, worker) -> None:
+        """Fire the next sample() on a worker with the CURRENT weights."""
+        cfg = self.algo_config
+        ref = worker.sample.remote(cfg.rollout_fragment_length, self._weights)
+        self._inflight[ref] = worker
+
     def training_step(self) -> Dict[str, Any]:
-        """The reference's _training_step_sync: sample inline, update,
-        repeat."""
+        cfg = self.algo_config
+        if not self.workers:
+            return self._training_step_sync()
+        import ray_tpu_torch
+
+        for w in self.workers:
+            if w not in self._inflight.values():
+                self._arm(w)
+
+        metrics: Dict[str, Any] = {}
+        for _ in range(cfg.updates_per_iteration):
+            ready, _ = ray_tpu_torch.wait(
+                list(self._inflight), num_returns=1, timeout=120
+            )
+            if not ready:
+                break
+            ref = ready[0]
+            worker = self._inflight.pop(ref)
+            batch, rollout_metrics = ray_tpu_torch.get(ref, timeout=60)
+            self._merge_episode_metrics(rollout_metrics)
+            metrics = self.learner_group.update(batch)
+            self._steps_sampled += rollout_metrics["num_env_steps"]
+            # fresh weights ride the re-arm (per-worker async broadcast)
+            self._weights = self.learner_group.get_weights()
+            self._arm(worker)
+
+        elapsed = max(time.monotonic() - self._t_start, 1e-9)
+        metrics.update(self._episode_stats())
+        metrics["timesteps_this_iter"] = self._steps_sampled - getattr(
+            self, "_steps_reported", 0
+        )
+        self._steps_reported = self._steps_sampled
+        metrics["env_steps_per_sec"] = self._steps_sampled / elapsed
+        return metrics
+
+    def _training_step_sync(self) -> Dict[str, Any]:
+        """num_rollout_workers=0: sample inline, update, repeat."""
         cfg = self.algo_config
         metrics: Dict[str, Any] = {}
         steps = 0

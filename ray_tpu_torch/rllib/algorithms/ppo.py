@@ -1,12 +1,12 @@
 """PPO: synchronous sample → multi-epoch clipped-surrogate SGD → weight sync.
 
-Counterpart of ray_tpu/rllib/algorithms/ppo.py: sample on the local
-runner (host CPU), update the learner (on `learner_device`, the card by
-default) on the concatenated batch, then hand its weights back to the
-runner. Single-agent, and multi-agent when config.multi_agent() names
-policies (one learner per policy). Tuned regression target: CartPole-v1
-episode_reward_mean >= 150 within 100k steps
-(rllib/tuned_examples/ppo/cartpole-ppo.yaml:4-6).
+Counterpart of ray_tpu/rllib/algorithms/ppo.py: sample on the runners
+(host CPU, inline or on EnvRunner actors), update the learner (on
+`learner_device`, the card by default) on the concatenated batch, then
+hand its weights back to the runners. Single-agent, and multi-agent
+when config.multi_agent() names policies (one learner per policy). Tuned
+regression target: CartPole-v1 episode_reward_mean >= 150 within 100k
+steps (rllib/tuned_examples/ppo/cartpole-ppo.yaml:4-6).
 """
 
 from __future__ import annotations
@@ -67,12 +67,12 @@ class PPO(Algorithm):
         if unknown:
             raise ValueError(f"policy_mapping_fn returned unknown ids {unknown}")
 
-        self.local_runner = MultiAgentEnvRunner(
-            worker_index=0, env=cfg.env, policy_mapping=mapping,
+        self._start_runners(MultiAgentEnvRunner, dict(
+            env=cfg.env, policy_mapping=mapping,
             num_envs=cfg.num_envs_per_worker, hiddens=tuple(cfg.hiddens),
             gamma=cfg.gamma, lambda_=cfg.lambda_, seed=cfg.seed,
             env_kwargs=cfg.env_kwargs,
-        )
+        ))
         self.policy_mapping = mapping
         self.learner_groups = {pid: self._make_learner_group() for pid in pids}
         self._ma_weights = {
@@ -93,17 +93,14 @@ class PPO(Algorithm):
         # rounds of fragments until train_batch_size TOTAL env steps, the
         # same contract as the single-agent sample_batch loop
         while steps < cfg.train_batch_size:
-            batches, metrics = self.local_runner.sample(
-                cfg.rollout_fragment_length, self._ma_weights
-            )
-            for pid, b in batches.items():
-                per_policy[pid].append(b)
-            steps += metrics["num_env_steps"]
-            # rolling windows: keep only the LATEST snapshot per agent
-            ep_returns = {
-                aid: list(rets[-20:])
-                for aid, rets in metrics["episode_returns_per_agent"].items()
-            }
+            ep_returns = {}
+            for batches, metrics in self.sample_round(self._ma_weights):
+                for pid, b in batches.items():
+                    per_policy[pid].append(b)
+                steps += metrics["num_env_steps"]
+                # rolling windows: keep only the LATEST snapshot per agent
+                for aid, rets in metrics["episode_returns_per_agent"].items():
+                    ep_returns.setdefault(aid, []).extend(rets[-20:])
         stats: Dict[str, Any] = {"timesteps_this_iter": steps}
         for pid, parts in per_policy.items():
             if not parts:
@@ -146,6 +143,7 @@ class PPO(Algorithm):
         )
         return LearnerGroup(
             PPOLearner, learner_kwargs, mode=cfg.learner_mode,
+            remote_options=cfg.learner_remote_options,
         )
 
     def training_step(self) -> Dict[str, Any]:

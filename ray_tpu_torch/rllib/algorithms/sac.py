@@ -203,6 +203,7 @@ class SAC(Algorithm):
                 device=cfg.learner_device,
             ),
             mode=cfg.learner_mode,
+            remote_options=cfg.learner_remote_options,
         )
 
     def training_step(self) -> Dict[str, Any]:

@@ -14,8 +14,8 @@ intra-op thread (`one_thread`): splitting an op that small over a
 thread pool costs more than the op, as much as 60× on a host whose CPU
 share is less than its visible cores.
 
-The reference also runs the runner as a remote actor; the port runs it
-inline only (algorithm.py).
+The runner runs inline in the driver or as a remote actor, a CPU worker
+process with no GPU lease (algorithm.py): it never opens the card.
 """
 
 from __future__ import annotations

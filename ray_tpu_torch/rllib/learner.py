@@ -30,15 +30,17 @@ word drawn from (seed + 1, k) (the reference splits one key seeded
 seed + 1), so the learner's state holds two integers for it, whatever
 the device.
 
-LearnerGroup runs the learner in-process only. The reference's remote
-learner (one actor that owns the accelerator) stands on the runtime
-planes, which the port has not copied yet (ROADMAP.md Queue A item 5):
-mode="remote" raises NotImplementedError.
+LearnerGroup runs the learner in-process (mode="local") or as one actor
+of the runtime (mode="remote"), the reference's accelerator-owning
+learner. An actor whose learner runs on a card holds a GPU lease of one
+card (num_gpus=1) unless its options name num_gpus: a worker without a
+lease sees every card, and the raylet may later lease that worker a card
+it did not open (ROADMAP.md, the one-node runtime's deviations).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,16 +58,6 @@ from ray_tpu_torch.rllib.models import (
 from ray_tpu_torch.rllib.sample_batch import SampleBatch, columns_to
 from ray_tpu_torch.rllib.vtrace import vtrace_from_logps
 from ray_tpu_torch.train.train_step import ClippedAdamW
-
-PLANES_REFUSAL = (
-    "waits for the runtime planes the PyTorch port has not copied yet "
-    "(ROADMAP.md Queue A item 5)"
-)
-REMOTE_REFUSAL = (
-    f"{PLANES_REFUSAL}; the port runs RLlib inline: "
-    "num_rollout_workers=0 and learner_mode='local'"
-)
-
 
 class TreeLearner:
     """A parameter tree on `device` and the reference's optimizer over its
@@ -421,29 +413,58 @@ class IMPALALearner(TorchLearner):
 
 
 class LearnerGroup:
-    """Runs a learner in-process (mode="local"). The reference's
-    mode="remote" is refused (module docstring)."""
+    """Runs a learner in-process or as one remote actor (module
+    docstring).
 
-    def __init__(self, learner_cls, learner_kwargs: Dict[str, Any], mode: str = "local"):
-        if mode == "remote":
-            raise NotImplementedError(
-                f"learner_mode='remote' (one learner actor) {REMOTE_REFUSAL}")
-        if mode != "local":
-            raise ValueError(f"unknown LearnerGroup mode {mode!r}")
+    Parity: rllib/core/learner/learner_group.py:61.
+    """
+
+    def __init__(self, learner_cls, learner_kwargs: Dict[str, Any], mode: str = "local",
+                 remote_options: Optional[Dict[str, Any]] = None):
         self.mode = mode
-        self._learner = learner_cls(**learner_kwargs)
+        if mode == "local":
+            self._learner = learner_cls(**learner_kwargs)
+            self._actor = None
+        elif mode == "remote":
+            import ray_tpu_torch
+
+            options = dict(remote_options or {"num_cpus": 1})
+            device = torch.device(learner_kwargs.get("device", "cuda"))
+            if device.type == "cuda":
+                options.setdefault("num_gpus", 1)
+            actor_cls = ray_tpu_torch.remote(**options)(learner_cls)
+            self._actor = actor_cls.remote(**learner_kwargs)
+            self._learner = None
+        else:
+            raise ValueError(f"unknown LearnerGroup mode {mode!r}")
+
+    def _call(self, method: str, *args):
+        if self._learner is not None:
+            return getattr(self._learner, method)(*args)
+        import ray_tpu_torch
+
+        return ray_tpu_torch.get(getattr(self._actor, method).remote(*args))
 
     def update(self, batch: SampleBatch) -> Dict[str, float]:
-        return self._learner.update(batch)
+        return self._call("update", batch)
 
     def get_weights(self):
-        return self._learner.get_weights()
+        return self._call("get_weights")
 
     def get_state(self):
-        return self._learner.get_state()
+        return self._call("get_state")
 
     def set_state(self, state):
-        self._learner.set_state(state)
+        self._call("set_state", state)
 
     def shutdown(self) -> None:
-        """Nothing to release: the learner lives in this process."""
+        """Kill the remote learner actor (it holds the card's lease —
+        leaking it would keep the card leased for the next trial)."""
+        if self._actor is not None:
+            import ray_tpu_torch
+
+            try:
+                ray_tpu_torch.kill(self._actor)
+            except Exception:  # noqa: BLE001 - already dead / shutdown race
+                pass
+            self._actor = None

@@ -7,9 +7,8 @@ file written by either package reads in the other to identical arrays.
 What is read goes into a host-side ReplayBuffer (algorithms/bc.py); only
 a sampled batch goes to the learner's device.
 
-`to_dataset` hands the rows to the Data plane (`ray_tpu.data`), which the
-port has not copied yet: it raises NotImplementedError (ROADMAP.md Queue A
-item 5).
+`to_dataset` hands the rows to the Data plane (`ray_tpu_torch.data`) as
+a Dataset of flat rows.
 
 Parity: rllib/offline/ (json_reader.py / json_writer.py / dataset_reader.py)
 — the path that records rollouts and trains from logged data without an
@@ -22,11 +21,10 @@ import base64
 import glob
 import json
 import os
-from typing import Iterator
+from typing import Iterator, List
 
 import numpy as np
 
-from ray_tpu_torch.rllib.learner import PLANES_REFUSAL
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 
 
@@ -105,9 +103,13 @@ class JsonReader:
 
 
 def to_dataset(path: str, parallelism: int = 4):
-    """The reference loads logged experience as a data.Dataset of flat
-    rows; the port has no Data plane yet (module docstring)."""
-    raise NotImplementedError(
-        f"to_dataset({path!r}) (logged rows as a data.Dataset) "
-        f"{PLANES_REFUSAL}; JsonReader(path).read_all() reads the same "
-        f"rows as one SampleBatch")
+    """Load logged experience as a data.Dataset of flat rows — shuffled
+    minibatch streaming for offline algorithms rides the Data layer."""
+    from ray_tpu_torch import data as rd
+
+    batch = JsonReader(path).read_all()
+    rows: List[dict] = []
+    n = len(batch)
+    for i in range(n):
+        rows.append({k: np.asarray(v)[i] for k, v in batch.items()})
+    return rd.from_items(rows, parallelism=parallelism)

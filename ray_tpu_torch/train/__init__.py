@@ -4,7 +4,11 @@ ray_tpu/train/)."""
 
 import ray_tpu_torch._vector_math  # noqa: F401  (exact first vector math)
 
-from ray_tpu_torch.train.batch_predictor import Predictor, TorchPredictor
+from ray_tpu_torch.train.batch_predictor import (
+    BatchPredictor,
+    Predictor,
+    TorchPredictor,
+)
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.config import (
     CheckpointConfig,
@@ -29,6 +33,7 @@ from ray_tpu_torch.train.trainer import (
 )
 
 __all__ = [
+    "BatchPredictor",
     "Predictor",
     "TorchPredictor",
     "Checkpoint",

@@ -1,15 +1,22 @@
-"""Batch inference predictors (counterpart of ray_tpu/train/batch_predictor.py).
+"""Batch inference: a Predictor over Dataset.map_batches.
 
-`TorchPredictor` takes the place of `JaxPredictor`: it loads {"params": ...}
-from a Checkpoint, puts the model on an explicit device once, and maps
-numpy batches to numpy predictions under torch.inference_mode().
-`BatchPredictor`, which maps a predictor over a Dataset on an actor pool,
-waits for the Data slice of the port.
+The port's copy of ray_tpu/train/batch_predictor.py. Parity:
+train/predictor.py (`Predictor.from_checkpoint/predict`) +
+train/batch_predictor.py (`BatchPredictor.predict` — runs the predictor
+as a callable class on an actor pool so each worker loads the model ONCE
+and streams batches through it).
+
+`TorchPredictor` takes the place of `JaxPredictor`: it loads
+{"params": ...} from a Checkpoint, puts the model on an explicit device
+once ("cuda" unless the caller asks for the CPU), and maps numpy batches
+to numpy predictions under torch.inference_mode(). `BatchPredictor` maps
+it over a Dataset (ray_tpu_torch.data); when the predictor's device is a
+card, each actor of the pool holds a GPU lease of one card.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, Type
 
 import numpy as np
 import torch
@@ -82,3 +89,64 @@ class TorchPredictor(Predictor):
         if not isinstance(out, dict):
             out = {"predictions": out}
         return {k: _to_numpy(v) for k, v in out.items()}
+
+
+class _PredictorWorker:
+    """map_batches callable class: constructs the predictor once per actor."""
+
+    def __init__(self, predictor_cls, checkpoint, predictor_kwargs,
+                 keep_columns):
+        self._predictor = predictor_cls.from_checkpoint(
+            checkpoint, **predictor_kwargs
+        )
+        self._keep = keep_columns
+
+    def __call__(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        out = self._predictor.predict(batch)
+        for col in self._keep:
+            if col in batch and col not in out:
+                out[col] = batch[col]
+        return out
+
+
+class BatchPredictor:
+    """Run a Predictor over a Dataset (parity: train/batch_predictor.py).
+
+    predict() maps the checkpointed model over the dataset's blocks on an
+    actor pool (model loaded once per worker), returning a new Dataset of
+    prediction batches. The actors hold one GPU each when the predictor
+    runs on a card: `predictor_kwargs["device"]`, "cuda" when not given
+    (TorchPredictor's default).
+    """
+
+    def __init__(self, checkpoint: Checkpoint,
+                 predictor_cls: Type[Predictor], **predictor_kwargs):
+        self._checkpoint = checkpoint
+        self._predictor_cls = predictor_cls
+        self._predictor_kwargs = predictor_kwargs
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint: Checkpoint,
+                        predictor_cls: Type[Predictor],
+                        **predictor_kwargs) -> "BatchPredictor":
+        return cls(checkpoint, predictor_cls, **predictor_kwargs)
+
+    def predict(
+        self,
+        dataset,
+        *,
+        batch_size: Optional[int] = None,
+        num_workers: int = 2,
+        keep_columns: tuple = (),
+    ):
+        from ray_tpu_torch.data.executor import ActorPoolStrategy
+
+        device = torch.device(self._predictor_kwargs.get("device", "cuda"))
+        return dataset.map_batches(
+            _PredictorWorker,
+            batch_size=batch_size,
+            compute=ActorPoolStrategy(
+                size=num_workers, num_gpus=1 if device.type == "cuda" else 0),
+            fn_args=(self._predictor_cls, self._checkpoint,
+                     self._predictor_kwargs, tuple(keep_columns)),
+        )

@@ -144,9 +144,11 @@ def test_bf16_plain_rounds_like_the_tpu_kernel():
         lse, (m + torch.log(p.sum(-1, keepdim=True)))[..., 0], **TOL)
 
 
-def _imports(path):
+def _imports(path, top_level=False):
+    """The modules a file imports; with top_level, only those imported at
+    module level (not inside a function or class)."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
+    for node in (tree.body if top_level else ast.walk(tree)):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -157,7 +159,9 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     """Nor transformers, which the GPU machine does not have: Llama's
     params_from_hf takes a model the caller built. The rank processes of
     the multi-process tests (tests/torch_parallel_ranks.py) import no JAX
-    either."""
+    either. pyarrow and pandas, which the GPU machine may lack, are
+    imported only inside the functions that read or write files, never at
+    a module's top level."""
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_ranks.py"]
     assert len(files) > 5
@@ -208,7 +212,16 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
             "ray_tpu_torch/core/core_worker.py",
             "ray_tpu_torch/core/worker_main.py",
             "ray_tpu_torch/core/cluster_backend.py",
-            "ray_tpu_torch/util/placement_group.py"} <= names
+            "ray_tpu_torch/util/placement_group.py",
+            "ray_tpu_torch/data/__init__.py",
+            "ray_tpu_torch/data/block.py",
+            "ray_tpu_torch/data/datasource.py",
+            "ray_tpu_torch/data/executor.py",
+            "ray_tpu_torch/data/shuffle.py",
+            "ray_tpu_torch/data/dataset.py",
+            "ray_tpu_torch/data/iterator.py",
+            "ray_tpu_torch/data/preprocessors.py",
+            "ray_tpu_torch/train/batch_predictor.py"} <= names
     bad = [
         (str(f.relative_to(REPO)), name)
         for f in files for name in _imports(f)
@@ -216,3 +229,9 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
                                   "flax", "transformers")
     ]
     assert not bad, bad
+    eager = [
+        (str(f.relative_to(REPO)), name)
+        for f in files for name in _imports(f, top_level=True)
+        if name.split(".")[0] in ("pyarrow", "pandas")
+    ]
+    assert not eager, eager

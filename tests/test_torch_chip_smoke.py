@@ -970,3 +970,96 @@ def test_multi_card_trainer_over_gloo(smoke, capsys):
         ray_tpu_torch.shutdown()
     text = capsys.readouterr().out
     assert '"mesh": {"dp": 2}' in text and "dp 2 ranks on cards [None, None]" in text
+
+
+# ---------------------------------------- [data] and the cluster's data phases
+
+def test_data_phase_on_the_cpu(smoke, capsys):
+    """[data] at a CPU size (1 MiB in batches of 16 rows, CPU tensors): every
+    batch equal to its source, the copy's numbers printed, and one stack of
+    2 GPT-2 steps through multi_step_fn equal to step_fn's losses (no
+    launch off the card); the in-process runtime shut down after."""
+    out = smoke.data_phase("card", device="cpu", nbytes=64 * smoke.DATA_ROW * 4,
+                           rows_a_batch=16, cfg=small_trainer_cfg(), batch=2,
+                           stack_steps=2)
+    assert out["launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+    assert out["batches"] == 4 and out["batch_bytes"] == 16 * smoke.DATA_ROW * 4
+    for k in ("stage_ms", "pinned_h2d_gb_s", "pageable_h2d_gb_s", "work_ms",
+              "loop_ms_median", "sum_stage_copy_and_work_ms"):
+        assert out[k] > 0, k
+    assert len(out["loop_ms"]) == smoke.DATA_LOOPS
+    text = capsys.readouterr().out
+    assert "[data] 4 batches of 262144 bytes equal their numpy source" in text
+    assert "iter_stacked_batches -> multi_step_fn, 2 steps of B 2" in text
+    assert not ray_tpu_torch_initialized()
+
+
+def test_data_phase_fails_on_a_batch_that_differs(smoke, monkeypatch):
+    """A device copy that changes a batch fails [data]."""
+    from ray_tpu_torch.data import iterator
+
+    real = iterator._DeviceFeed.put
+
+    def put(self, pieces, lead=None):
+        out, event = real(self, pieces, lead)
+        out["data"][0, 0] += 1.0
+        return out, event
+
+    monkeypatch.setattr(iterator._DeviceFeed, "put", put)
+    with pytest.raises(SystemExit, match=r"\[data\] batch 0 differs"):
+        smoke.data_phase("card", device="cpu", nbytes=64 * smoke.DATA_ROW * 4,
+                         rows_a_batch=16, cfg=small_trainer_cfg(), batch=2,
+                         stack_steps=2)
+    assert not ray_tpu_torch_initialized()
+
+
+def test_cluster_data_phases_on_the_cpu(small_rllib, capsys, monkeypatch):
+    """[data-train], [data-serve] and [rllib-remote] on a CPU cluster of
+    three CPUs at small sizes: the Dataset-fed losses equal the directly fed
+    ones in a worker process, the BatchPredictor actor's answers equal a
+    TorchPredictor's here, the remote PPO reaches a small target, the remote
+    learner's update equals the local one's, IMPALA's asynchronous loop and
+    DQN's and SAC's sampling workers run; nothing left after shutdown."""
+    import ray_tpu_torch
+    from ray_tpu_torch.api import _global_worker
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train.batch_predictor import TorchPredictor
+    from ray_tpu_torch.train.train_step import synthetic_batch
+    from torch_cluster_pairs import assert_nothing_left
+
+    smoke = small_rllib
+    monkeypatch.setattr(smoke, "RLLIB_TARGET_REWARD", 12.0)
+    monkeypatch.setattr(smoke, "RLLIB_MIN_EPISODES", 5)
+    monkeypatch.setattr(smoke, "RLLIB_REMOTE_IMPALA", dict(
+        smoke.RLLIB_REMOTE_IMPALA, fragment=8, iterations=2))
+    cfg = small_trainer_cfg()
+    serve_cfg = replace(gpt2.gpt2_tiny(), n_layer=1, seq_len=32)
+    params = gpt2.init(serve_cfg, torch.Generator().manual_seed(0), device="cpu")
+    predictor = TorchPredictor(params, smoke.serve_apply_fn(gpt2, serve_cfg),
+                               device="cpu")
+    answers = [predictor.predict({"tokens": synthetic_batch(serve_cfg, 2, seed=i)
+                                  ["tokens"]}) for i in range(2)]
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=3, num_gpus=0)
+    core = _global_worker().backend.core
+    try:
+        out = smoke.cluster_data_phases(
+            "card", {"serve": {"answers": answers, "request_ms": 1.0},
+                     "ppo": {"iterations": 1, "env_steps_per_s": 1.0},
+                     "serve_cfg": serve_cfg, "requests": 2, "request_batch": 2,
+                     "steps": 3},
+            100.0, device="cpu", cfg=cfg, batch=2)
+    finally:
+        assert_nothing_left((core.node_id, core.session))
+    assert out["data-train"]["launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+    assert out["data-serve"]["launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+    remote = out["rllib-remote"]
+    assert remote["ppo"]["iterations"] >= 1
+    assert remote["impala"]["updates"] == 2 * 4
+    assert remote["dqn"]["updates"] == remote["sac"]["updates"] == 2 * 3
+    text = capsys.readouterr().out
+    assert '"bitwise_equal": true' in text
+    assert '"differing_requests": []' in text
+    assert "learner_mode='remote'" in text and "[rllib-remote] phase took" in text
+    for tag in ("data-train", "data-serve", "rllib-remote"):
+        assert f"[{tag}] took" in text

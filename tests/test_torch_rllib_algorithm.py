@@ -14,8 +14,8 @@ on device="cpu".
   the reference's result keys; save() then restore() into a fresh
   algorithm gives identical weights and an identical next update (DQN's
   and SAC's replay buffer and env-step count are not in the checkpoint,
-  as in the reference); the remote topologies raise NotImplementedError
-  naming ROADMAP.md Queue A item 5; the learner defaults to the card.
+  as in the reference); the learner defaults to the card. (The remote
+  topologies are held in tests/test_torch_rllib_remote.py.)
 """
 
 import jax
@@ -214,23 +214,6 @@ def test_save_restore_gives_identical_weights_and_next_update(make, tmp_path):
             tree_leaves(a.get_weights()), tree_leaves(b.get_weights())))
 
 
-@pytest.mark.parametrize("change,match", [
-    (lambda c: c.rollouts(num_rollout_workers=2), "EnvRunner actors"),
-    (lambda c: c.resources(learner_mode="remote"), "learner_mode='remote'"),
-])
-@pytest.mark.parametrize("make", [ppo, ma_ppo])
-def test_remote_topologies_are_refused(make, change, match):
-    with pytest.raises(NotImplementedError, match=f"{match}.*Queue A item 5"):
-        change(make(PPOConfig, learner_device="cpu")).build()
-
-
-def test_impala_with_workers_is_refused():
-    with pytest.raises(NotImplementedError,
-                       match="IMPALA.*asynchronous training_step.*Queue A item 5"):
-        impala(IMPALAConfig, learner_device="cpu").rollouts(
-            num_rollout_workers=2).build()
-
-
 def test_learner_defaults_to_the_card():
     """The config's learner device is "cuda" unless the caller says
     otherwise; without a card, building it raises (nothing carries on on
@@ -352,17 +335,6 @@ def test_offpolicy_save_restore_gives_identical_weights_and_next_update(algo, ex
         assert len(trained.buffer) == 256
     if algo == "dqn":
         assert fresh._epsilon() == 1.0 > trained._epsilon()
-
-
-@pytest.mark.parametrize("change,match", [
-    (lambda c: c.rollouts(num_rollout_workers=2), "EnvRunner actors"),
-    (lambda c: c.resources(learner_mode="remote"), "learner_mode='remote'"),
-])
-@pytest.mark.parametrize("algo", ["dqn", "sac"])
-def test_offpolicy_remote_topologies_are_refused(algo, change, match):
-    make, cfg, _ = OFF_POLICY[algo]
-    with pytest.raises(NotImplementedError, match=f"{match}.*Queue A item 5"):
-        change(make(cfg, learner_device="cpu")).build()
 
 
 @pytest.mark.parametrize("algo", ["dqn", "sac", "bc"])

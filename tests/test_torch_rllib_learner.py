@@ -213,11 +213,9 @@ def test_weights_are_host_copies():
     assert not np.array_equal(port.get_weights()["pi"][0]["w"], before)
 
 
-def test_learner_group_runs_local_and_refuses_remote():
+def test_learner_group_runs_local():
     kw = dict(obs_dim=OBS_DIM, num_actions=NUM_ACTIONS, device="cpu")
     group = tlearner.LearnerGroup(tlearner.PPOLearner, kw)
     assert group.get_weights()["vf"][-1]["w"].shape == (64, 1)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        tlearner.LearnerGroup(tlearner.PPOLearner, kw, mode="remote")
     with pytest.raises(ValueError, match="unknown LearnerGroup mode"):
         tlearner.LearnerGroup(tlearner.PPOLearner, kw, mode="elsewhere")

@@ -3,7 +3,7 @@
 reference's round trip on the port; files written by either package read
 in the other to identical arrays (dtypes and shapes too), and the two
 write the same records; a missing path raises FileNotFoundError;
-to_dataset, which stands on the Data plane, is refused.
+to_dataset's rows are held in tests/test_torch_rllib_remote.py.
 """
 
 import json
@@ -14,7 +14,7 @@ import pytest
 from ray_tpu.rllib import offline as joffline
 from ray_tpu.rllib.sample_batch import SampleBatch as JSampleBatch
 from ray_tpu_torch.rllib import offline
-from ray_tpu_torch.rllib.offline import JsonReader, JsonWriter, to_dataset
+from ray_tpu_torch.rllib.offline import JsonReader, JsonWriter
 from ray_tpu_torch.rllib.sample_batch import SampleBatch
 
 
@@ -89,11 +89,3 @@ def test_the_records_are_the_references(tmp_path):
     for k, v in b.items():
         assert offline._encode_array(v) == joffline._encode_array(v)
         assert np.array_equal(offline._decode_array(joffline._encode_array(v)), v)
-
-
-def test_to_dataset_waits_for_the_data_plane(tmp_path):
-    w = JsonWriter(str(tmp_path))
-    w.write(_batch(4))
-    w.close()
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        to_dataset(str(tmp_path), parallelism=2)
