@@ -364,7 +364,40 @@ Phases, each fatal on failure (there is no CPU path and no caught phase):
    flash_fwd in the task's worker on the GPU node. Then shutdown(): no
    process the cluster spawned is left in /proc, neither one of the killed
    node's nor an rt_transfer daemon.
-35. Print the kernels line (each kernel's numbers by model path), the card's
+35. [pipelined]: a one-node cluster of its own, started with
+   RAY_TPU_SANITIZE=1 (every daemon and worker sanitized),
+   worker_requeue_after_ms pinned at 5000 and a 500 ms metrics period.
+   GPT-2-124M's parameters (from [main]'s seeded generator) are put once;
+   a @remote(num_gpus=0.5) request task gets them once per worker process
+   and keeps a TorchPredictor (two GPU workers share the card). A pair of
+   requests at worker_max_tasks_in_flight=1 meets at a barrier, so both
+   workers load; then 24 of [main]'s B 8 requests at once, pipelined: every
+   answer equal to [main]'s in every bit, some lease carrying 2 to
+   worker_max_tasks_in_flight specs at once (counted at the owner), 12
+   flash_fwd a request; the same 24 again at depth 1 (a contrast, each
+   lease one spec). Then a blocker request holds its run slot in a 3 s
+   sleep after its forward, and 12 requests submitted behind it answer
+   equal, within 1.5 s: the owner stole specs off the blocked worker (the
+   requeue bound cannot act in that time) and the workers count the
+   steals. Prints both bursts' wall time and requests/s and the stolen
+   requests' time beside the blocker's.
+36. [observe] on that cluster: a request submitted under
+   deadline_context(now - 0.1) raises DeadlineExceededError and never
+   reaches a worker (its task events end FAILED with no DISPATCHED or
+   RUNNING; both workers' flash_fwd counts equal the launches of the
+   requests that ran); a request under a 30 s deadline sees
+   remaining_time_s() in (0, 30]. timeline() is written to
+   build/observe_timeline.json: one FINISHED row per request, each
+   request's profile_span("forward") inside its task's RUNNING slice on
+   the same worker row; summarize_tasks() counts every request FINISHED
+   and the shed one FAILED; the GCS's task_e2e_ms histogram counts every
+   request. No lock-order or affinity violation in this driver
+   (sanitizers.violation_counts) or in the daemons and workers
+   (sanitizer_violations_total in the merged series, less this driver's).
+   Prints metric_percentile("task_e2e_ms", 0.5) beside the host clock's
+   median of the pipelined burst, and the forward's span beside its
+   CUDA-event time. Then shutdown(): no process of the cluster left.
+37. Print the kernels line (each kernel's numbers by model path), the card's
    name and power limit, and last the result line {"ok": true, ...}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -6205,6 +6238,480 @@ def cluster_phases(card: str, trainer: dict, train_step_ms=None,
             **{k: v["launches"] for k, v in more.items() if "launches" in v}}
 
 
+# --------------------------------------------------------------------------- #
+# Phases 35 and 36: pipelined submission and the observability planes
+# --------------------------------------------------------------------------- #
+
+OBSERVE_TAGS = ("pipelined", "observe")
+OBSERVE_BURST = 24            # [pipelined]'s requests submitted at once
+OBSERVE_STOLEN = 12           # requests submitted behind the blocker
+OBSERVE_HOLD_S = 3.0          # the blocker's sleep, holding its run slot
+OBSERVE_STOLEN_MAX_S = 1.5    # the stolen requests' bound (the blocker: 3 s)
+# pinned far above OBSERVE_HOLD_S: only a steal can move a queued request
+OBSERVE_REQUEUE_MS = 5000
+OBSERVE_DEADLINE_S = 30.0
+OBSERVE_METRICS_MS = 500      # the cluster's metrics flush and sample period
+OBSERVE_TIMELINE = REPO / "build" / "observe_timeline.json"
+_OBSERVE_PREDICTORS: dict = {}
+
+
+def observe_request(params_box, cfg, tokens, device, hold_s: float = 0.0,
+                    barrier: Optional[str] = None):
+    """[pipelined]'s and [observe]'s GPU task. [main]'s TorchPredictor over
+    the parameters put once (params_box[0], a ref this worker process gets
+    once and keeps), one forward of `tokens` inside profile_span("forward"),
+    timed by the host clock and by CUDA events; then `hold_s` seconds of
+    time.sleep, holding the run slot (the blocker). With `barrier` (a
+    directory), the task first waits there for a second task, so a pair of
+    them runs in two worker processes at once. Returns the answer, the host
+    and CUDA-event ms, remaining_time_s(), this forward's launches, the
+    process's launches so far and its work steals, its pid and its cards."""
+    import ray_tpu_torch
+    from ray_tpu_torch import tracing
+
+    key = params_box[0].id.hex()
+    predictor = _OBSERVE_PREDICTORS.get(key)
+    if predictor is None:
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.train.batch_predictor import TorchPredictor
+
+        params = ray_tpu_torch.get(params_box[0], timeout=600)
+        predictor = _OBSERVE_PREDICTORS.setdefault(key, TorchPredictor(
+            params, serve_apply_fn(gpt2, cfg), device=device))
+        del params
+    if barrier is not None:
+        Path(barrier, str(os.getpid())).touch()
+        deadline = time.monotonic() + 120
+        while len(os.listdir(barrier)) < 2 and time.monotonic() < deadline:
+            time.sleep(0.02)
+    on_card = torch.device(device).type == "cuda"
+    before = launches_since_reset()
+    if on_card:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+    t = time.perf_counter()
+    with tracing.profile_span("forward"):
+        out = predictor.predict({"tokens": tokens})  # numpy: synced
+    host_ms = (time.perf_counter() - t) * 1e3
+    cuda_ms = None
+    if on_card:
+        end.record()
+        end.synchronize()
+        cuda_ms = start.elapsed_time(end)
+    after = launches_since_reset()
+    core = ray_tpu_torch.api._global_worker().backend.core
+    steals = getattr(getattr(core, "_exec_slot", None), "steals", 0)
+    remaining = ray_tpu_torch.remaining_time_s()
+    if hold_s:
+        time.sleep(hold_s)
+    return {"answer": out, "host_ms": host_ms, "cuda_ms": cuda_ms,
+            "remaining_s": remaining,
+            "launches": {k: after[k] - before[k] for k in after},
+            "process_launches": after, "steals": steals, "pid": os.getpid(),
+            "cards": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+@contextmanager
+def observe_depth(depth: int):
+    """The driver's worker_max_tasks_in_flight for a block."""
+    from ray_tpu_torch.core.config import _config
+
+    saved = _config.worker_max_tasks_in_flight
+    _config.worker_max_tasks_in_flight = depth
+    try:
+        yield
+    finally:
+        _config.worker_max_tasks_in_flight = saved
+
+
+def observe_check_answers(tag: str, results: list, main: dict, seeds) -> None:
+    differ = [i for i, (r, s) in enumerate(zip(results, seeds))
+              if not same_answer(r["answer"], main["answers"][s])]
+    if differ:
+        fail(f"[{tag}] requests {differ} differ from [main]'s answers")
+
+
+def observe_pair(task, params_box, cfg, tokens: list, device) -> list:
+    """Two requests at depth 1 that meet at a barrier: each runs in a
+    worker process of its own, which gets the parameters if it has not."""
+    import tempfile
+
+    import ray_tpu_torch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_observe_") as barrier, \
+            observe_depth(1):
+        refs = [task.remote(params_box, cfg, tokens[i % len(tokens)], device,
+                            barrier=barrier) for i in range(2)]
+        out = ray_tpu_torch.get(refs, timeout=900)
+    if len({r["pid"] for r in out}) != 2:
+        fail(f"[pipelined] the pair ran in one process {out[0]['pid']}")
+    return [(r.task_id.hex(), o) for r, o in zip(refs, out)]
+
+
+def observe_burst(task, params_box, cfg, tokens: list, device, n: int,
+                  depth: int) -> dict:
+    """n requests submitted at once at the driver's depth `depth`: their
+    results (request i is [main]'s request i mod len(tokens)), the wall
+    time to the last answer, each request's submit-to-answer ms on the
+    host clock, and the most specs one lease carried at once."""
+    import ray_tpu_torch
+
+    core = ray_tpu_torch.api._global_worker().backend.core
+    core.lease_stats["max_inflight"] = 0
+    with observe_depth(depth):
+        t0 = time.perf_counter()
+        refs = [task.remote(params_box, cfg, tokens[i % len(tokens)], device)
+                for i in range(n)]
+        done, pending = {}, list(refs)
+        while pending:
+            ready, pending = ray_tpu_torch.wait(pending, num_returns=1,
+                                                timeout=600)
+            if not ready:
+                fail(f"[pipelined] {len(pending)} requests unanswered after 600 s")
+            for r in ready:
+                done[r.task_id.hex()] = (time.perf_counter() - t0) * 1e3
+        wall_s = time.perf_counter() - t0
+        results = ray_tpu_torch.get(refs, timeout=60)
+    return {"results": results, "refs": refs, "wall_s": wall_s,
+            "e2e_ms": [done[r.task_id.hex()] for r in refs],
+            "max_inflight": core.lease_stats["max_inflight"]}
+
+
+def pipelined_phase(card: str, main: dict, task, params_box, cfg, tokens: list,
+                    device, ledger: list) -> dict:
+    """[pipelined] (module docstring) on the running cluster. `ledger`
+    gets every executed request's (task id, result)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.core.config import _config
+
+    n_main = len(tokens)
+    on_card = torch.device(device).type == "cuda"
+    core = ray_tpu_torch.api._global_worker().backend.core
+    t = time.perf_counter()
+    warm_pair = observe_pair(task, params_box, cfg, tokens, device)
+    warm = [r for _, r in warm_pair]
+    warm_s = time.perf_counter() - t
+    observe_check_answers("pipelined", warm, main, [0, 1 % n_main])
+    seeds = [i % n_main for i in range(OBSERVE_BURST)]
+
+    deep = observe_burst(task, params_box, cfg, tokens, device, OBSERVE_BURST,
+                         _config.worker_max_tasks_in_flight)
+    observe_check_answers("pipelined", deep["results"], main, seeds)
+    one = observe_burst(task, params_box, cfg, tokens, device, OBSERVE_BURST, 1)
+    observe_check_answers("pipelined", one["results"], main, seeds)
+
+    # work stealing: a blocker holds its run slot; requests queued behind
+    # it must move to the other worker long before it ends
+    stolen_before = core.lease_stats["stolen"]
+    blocker = task.remote(params_box, cfg, tokens[0], device, hold_s=OBSERVE_HOLD_S)
+    blocker_t0 = time.perf_counter()
+    time.sleep(0.5)  # its forward is done, it sleeps holding the slot
+    t = time.perf_counter()
+    refs = [task.remote(params_box, cfg, tokens[i % n_main], device)
+            for i in range(OBSERVE_STOLEN)]
+    stolen = ray_tpu_torch.get(refs, timeout=600)
+    stolen_s = time.perf_counter() - t
+    held = ray_tpu_torch.get(blocker, timeout=600)
+    blocker_s = time.perf_counter() - blocker_t0
+    stolen_by_owner = core.lease_stats["stolen"] - stolen_before
+    observe_check_answers("pipelined", stolen + [held], main,
+                          [i % n_main for i in range(OBSERVE_STOLEN)] + [0])
+    # both workers' steal counts, read after the steal
+    count_pair = observe_pair(task, params_box, cfg, tokens, device)
+    steals = {r["pid"]: r["steals"] for _, r in count_pair}
+
+    ran = warm + deep["results"] + one["results"] + stolen + [held]
+    ledger.extend(zip([tid for tid, _ in warm_pair]
+                      + [r.task_id.hex() for r in deep["refs"]]
+                      + [r.task_id.hex() for r in one["refs"]]
+                      + [r.task_id.hex() for r in refs] + [blocker.task_id.hex()],
+                      ran))
+    ledger.extend(count_pair)
+    ran += [r for _, r in count_pair]
+    launches = {k: sum(r["launches"][k] for r in ran)
+                for k in ("flash_fwd", "flash_bwd")}
+    deep_launches = sum(r["launches"]["flash_fwd"] for r in deep["results"])
+    log("[pipelined] " + json.dumps(dict(
+        card=card, requests=OBSERVE_BURST, batch=int(tokens[0].shape[0]),
+        seq_len=cfg.seq_len, warm_up_s=warm_s,
+        depth=_config.worker_max_tasks_in_flight,
+        wall_s=deep["wall_s"], requests_per_s=OBSERVE_BURST / deep["wall_s"],
+        max_specs_on_one_lease=deep["max_inflight"],
+        depth_1_wall_s=one["wall_s"],
+        depth_1_requests_per_s=OBSERVE_BURST / one["wall_s"],
+        depth_1_max_specs_on_one_lease=one["max_inflight"],
+        e2e_ms_median=float(np.median(deep["e2e_ms"])),
+        depth_1_e2e_ms_median=float(np.median(one["e2e_ms"])),
+        forward_host_ms_median=float(np.median(
+            [r["host_ms"] for r in deep["results"]])),
+        pids=sorted({r["pid"] for r in ran}),
+        cards=sorted({str(r["cards"]) for r in ran}),
+        stolen_requests=OBSERVE_STOLEN, stolen_s=stolen_s,
+        blocker_hold_s=OBSERVE_HOLD_S, blocker_s=blocker_s,
+        stolen_by_owner=stolen_by_owner, steals_by_worker=steals,
+        requeue_after_ms=OBSERVE_REQUEUE_MS, launches=launches)))
+    log(f"[pipelined] {OBSERVE_BURST} requests: {deep['wall_s']:.3f} s "
+        f"({OBSERVE_BURST / deep['wall_s']:.2f} requests/s) pipelined, "
+        f"{one['wall_s']:.3f} s ({OBSERVE_BURST / one['wall_s']:.2f} "
+        f"requests/s) at worker_max_tasks_in_flight=1; {card}")
+    log(f"[pipelined] {OBSERVE_STOLEN} requests behind the blocker answered "
+        f"in {stolen_s:.3f} s, the blocker in {blocker_s:.3f} s (it holds "
+        f"its slot {OBSERVE_HOLD_S} s); {card}")
+    if not 2 <= deep["max_inflight"] <= _config.worker_max_tasks_in_flight:
+        fail(f"[pipelined] the most specs on one lease was "
+             f"{deep['max_inflight']}, expected 2 to "
+             f"{_config.worker_max_tasks_in_flight}")
+    if one["max_inflight"] != 1:
+        fail(f"[pipelined] at depth 1 a lease carried {one['max_inflight']} specs")
+    if len({r["pid"] for r in ran}) != 2:
+        fail(f"[pipelined] the requests ran in {sorted({r['pid'] for r in ran})}, "
+             f"expected two GPU worker processes")
+    if stolen_s >= OBSERVE_STOLEN_MAX_S or stolen_by_owner < 1 \
+            or sum(steals.values()) < 1:
+        fail(f"[pipelined] the requests behind the blocker took {stolen_s:.3f} s "
+             f"(bound {OBSERVE_STOLEN_MAX_S} s), {stolen_by_owner} stolen at "
+             f"the owner, workers' steals {steals}")
+    expected = cfg.n_layer * len(ran) if on_card else 0
+    if launches != {"flash_fwd": expected, "flash_bwd": 0} or \
+            deep_launches != (cfg.n_layer * OBSERVE_BURST if on_card else 0):
+        fail(f"[pipelined] the requests launched {launches} ({deep_launches} "
+             f"in the burst), expected flash_fwd {expected} and flash_bwd 0")
+    return {"launches": launches,
+            "host_e2e_ms_median": float(np.median(deep["e2e_ms"]))}
+
+
+def observe_phase(card: str, main: dict, task, params_box, cfg, tokens: list,
+                  device, ledger: list, ctx: dict) -> dict:
+    """[observe] (module docstring) on the running cluster, after
+    [pipelined]: `ledger` holds every request that ran before."""
+    import ray_tpu_torch
+    from ray_tpu_torch import exceptions as exc
+    from ray_tpu_torch import tracing
+    from ray_tpu_torch.analysis import sanitizers as san
+    from ray_tpu_torch.util import state
+
+    on_card = torch.device(device).type == "cuda"
+    with tracing.deadline_context(time.time() - 0.1):
+        shed_ref = task.remote(params_box, cfg, tokens[0], device)
+    try:
+        ray_tpu_torch.get(shed_ref, timeout=120)
+        fail("[observe] a request past its deadline was answered")
+    except exc.DeadlineExceededError as e:
+        shed_error = str(e)
+    with tracing.deadline_context(time.time() + OBSERVE_DEADLINE_S):
+        budget_ref = task.remote(params_box, cfg, tokens[0], device)
+        budget = ray_tpu_torch.get(budget_ref, timeout=120)
+    observe_check_answers("observe", [budget], main, [0])
+    # both workers' launch counts: every launch belongs to a request that ran
+    probe_pair = observe_pair(task, params_box, cfg, tokens, device)
+    probe = [r for _, r in probe_pair]
+    ledger.extend([(budget_ref.task_id.hex(), budget), *probe_pair])
+    by_pid = {}
+    for _, r in ledger:
+        by_pid[r["pid"]] = by_pid.get(r["pid"], 0) + r["launches"]["flash_fwd"]
+    counted = {r["pid"]: r["process_launches"]["flash_fwd"] for r in probe}
+    if counted != by_pid:
+        fail(f"[observe] the workers launched {counted} flash_fwd, the "
+             f"requests that ran account for {by_pid}")
+    rem = budget["remaining_s"]
+    if rem is None or not 0 < rem <= OBSERVE_DEADLINE_S:
+        fail(f"[observe] remaining_time_s() in a task under a "
+             f"{OBSERVE_DEADLINE_S} s deadline was {rem}")
+
+    # task events: owner, raylet and workers flush on ~1 s loops
+    ran_ids = [tid for tid, _ in ledger]
+    deadline = time.monotonic() + 30
+    while True:
+        rows = {t["task_id"]: t for t in state.list_tasks(limit=10_000)}
+        settled = all(rows.get(tid, {}).get("state") == "FINISHED"
+                      for tid in ran_ids)
+        shed_row = rows.get(shed_ref.task_id.hex(), {})
+        if (settled and shed_row.get("state") == "FAILED"
+                and len(state.timeline_events()) > 0) \
+                or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    time.sleep(1.5)  # the workers' EXECUTED and spans of the last requests
+    OBSERVE_TIMELINE.parent.mkdir(parents=True, exist_ok=True)
+    trace = ray_tpu_torch.timeline(str(OBSERVE_TIMELINE))
+    name = observe_request.__name__
+    finished = [e for e in trace if e["name"] == f"{name}:FINISHED"]
+    finished_ids = [e["args"].get("task_id") for e in finished]
+    runs = {e["args"]["task_id"]: e for e in trace
+            if e["ph"] == "X" and e["name"] == name}
+    spans = {}
+    for e in trace:
+        if e["ph"] == "X" and e["name"] == "forward":
+            spans[e["args"].get("task_id")] = e
+    missing_rows = [t for t in ran_ids if finished_ids.count(t) != 1]
+    outside = []
+    span_ms, cuda_ms = [], []
+    for tid, r in ledger:
+        run, span = runs.get(tid), spans.get(tid)
+        if run is None or span is None or (run["pid"], run["tid"]) != (
+                span["pid"], span["tid"]) or not (
+                run["ts"] <= span["ts"]
+                and span["ts"] + span["dur"] <= run["ts"] + run["dur"]):
+            outside.append(tid)
+            continue
+        span_ms.append(span["dur"] / 1e3)
+        if r["cuda_ms"] is not None:
+            cuda_ms.append(r["cuda_ms"])
+    summary = state.summarize_tasks()
+    counts = summary["tasks"].get(name, {})
+    submitted = len(ledger) + 1  # and the shed request
+    shed_events = [e["state"] for e in (state.get_task(
+        shed_ref.task_id.hex()) or {}).get("events", [])]
+
+    # metrics: the GCS derives task_e2e_ms from the task events
+    deadline = time.monotonic() + 20
+    while True:
+        samples = state.get_metrics_timeseries(names=["task_e2e_ms"], limit=1)
+        pts = {}
+        if samples:
+            hist = next((s for s in samples[-1]["series"]
+                         if s["name"] == "task_e2e_ms"), None)
+            pts = hist["points"] if hist else {}
+        e2e_count = pts.get((("name", name),), [0])[-1]
+        if e2e_count >= submitted or time.monotonic() > deadline:
+            break
+        time.sleep(0.25)
+    p50 = state.metric_percentile("task_e2e_ms", 0.5, {"name": name})
+    summary_metrics = state.summarize_metrics()
+
+    # sanitizers: this driver's own, and the daemons' and workers' counter
+    # (the merge less this driver's registry)
+    from ray_tpu_torch.util.metrics import get_registry
+
+    def by_kind(series_list):
+        vio = next((s for s in series_list
+                    if s["name"] == "sanitizer_violations_total"), None)
+        return {dict(k).get("kind"): v
+                for k, v in (vio["points"].items() if vio else ())}
+
+    time.sleep(2 * OBSERVE_METRICS_MS / 1e3)  # one more flush of every process
+    merged = by_kind(state._gcs_call("collect_metrics"))
+    mine = by_kind(get_registry().collect())
+    daemons = {k: merged.get(k, 0) - mine.get(k, 0) for k in merged}
+    driver = {k: v - ctx["violations"].get(k, 0)
+              for k, v in san.violation_counts().items()}
+    launches = {k: budget["launches"][k] + sum(r["launches"][k] for r in probe)
+                for k in ("flash_fwd", "flash_bwd")}
+    log("[observe] " + json.dumps(dict(
+        card=card, shed_error=shed_error, shed_task_events=shed_events,
+        remaining_time_s=rem, deadline_s=OBSERVE_DEADLINE_S,
+        launches_by_worker=counted, timeline=str(OBSERVE_TIMELINE.relative_to(REPO)),
+        timeline_events=len(trace), requests_run=len(ran_ids),
+        finished_rows=len(finished), spans_outside_running=outside,
+        summarize_tasks=counts, submitted=submitted,
+        task_e2e_ms_count=e2e_count, task_e2e_ms_p50=p50,
+        host_e2e_ms_median=ctx.get("host_e2e_ms_median"),
+        forward_span_ms_median=float(np.median(span_ms)) if span_ms else None,
+        forward_cuda_ms_median=float(np.median(cuda_ms)) if cuda_ms else None,
+        tasks_finished=summary_metrics.get("tasks_finished"),
+        driver_violations=driver, daemon_violations=daemons,
+        sanitizers=san.report().splitlines()[0], launches=launches)))
+    log(f"[observe] task_e2e_ms p50 {p50} ms (the GCS's series) beside the "
+        f"host clock's median {ctx.get('host_e2e_ms_median')} ms of the "
+        f"pipelined burst; the forward's span "
+        f"{float(np.median(span_ms)) if span_ms else None} ms beside its "
+        f"CUDA-event time {float(np.median(cuda_ms)) if cuda_ms else None} ms; "
+        f"{card}")
+    if "RUNNING" in shed_events or "DISPATCHED" in shed_events:
+        fail(f"[observe] the shed request reached a worker: {shed_events}")
+    if missing_rows or outside:
+        fail(f"[observe] the timeline lacks one FINISHED row for requests "
+             f"{missing_rows}, or their forward span lies outside their RUNNING "
+             f"span: {outside}")
+    if counts != {"FINISHED": len(ledger), "FAILED": 1}:
+        fail(f"[observe] summarize_tasks counts {counts} for {name}, expected "
+             f"{len(ledger)} FINISHED and the shed one FAILED")
+    if e2e_count < submitted:
+        fail(f"[observe] task_e2e_ms counts {e2e_count} of {name}, "
+             f"{submitted} submitted")
+    if p50 is None or p50 <= 0:
+        fail(f"[observe] metric_percentile('task_e2e_ms', 0.5) gave {p50}")
+    for where, got in (("this driver", driver), ("the daemons", daemons)):
+        if got.get("lock_order") or got.get("affinity"):
+            fail(f"[observe] sanitizer violations in {where}: {got}; "
+                 f"{san.report()}")
+    expected = cfg.n_layer * 3 if on_card else 0
+    if launches != {"flash_fwd": expected, "flash_bwd": 0}:
+        fail(f"[observe] the requests launched {launches}, expected flash_fwd "
+             f"{expected} and flash_bwd 0")
+    return {"launches": launches}
+
+
+def observe_phases(card: str, data: dict, device="cuda", cfg=None) -> dict:
+    """[pipelined] and [observe] on one cluster of their own, started with
+    RAY_TPU_SANITIZE=1 (every daemon and worker sanitized, and this
+    driver's locks made from then on), worker_requeue_after_ms pinned at
+    OBSERVE_REQUEUE_MS and the metrics period at OBSERVE_METRICS_MS; each
+    phase's seconds printed, then shutdown() and no process of the cluster
+    left. `data` holds [main]'s kept answers ("serve"), and for a small
+    rehearsal the serving config and request shape ("serve_cfg",
+    "requests", "request_batch")."""
+    import ray_tpu_torch
+    from ray_tpu_torch.analysis import sanitizers as san
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train.train_step import synthetic_batch
+
+    cfg = data.get("serve_cfg") or cfg or gpt2.gpt2_124m()
+    n_main = data.get("requests", N_REQUESTS)
+    batch = data.get("request_batch", REQUEST_BATCH)
+    tokens = [synthetic_batch(cfg, batch, seed=i)["tokens"] for i in range(n_main)]
+    env = {"RAY_TPU_SANITIZE": "1",
+           "RAY_TPU_WORKER_REQUEUE_AFTER_MS": str(OBSERVE_REQUEUE_MS),
+           "RAY_TPU_METRICS_REPORT_INTERVAL_MS": str(OBSERVE_METRICS_MS)}
+    saved_env = {k: os.environ.get(k) for k in env}
+    saved_gate = san.enabled()
+    os.environ.update(env)
+    san.enable(True)
+    ctx, out, ledger = {"violations": san.violation_counts()}, {}, []
+    try:
+        t0 = time.perf_counter()
+        ray_tpu_torch.init(num_cpus=2, num_gpus=None if device != "cpu" else 1)
+        core = ray_tpu_torch.api._global_worker().backend.core
+        ctx.update(node_id=core.node_id, session=core.session)
+        params = gpt2.init(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+        params_box = [ray_tpu_torch.put(params)]
+        del params
+        free_device_memory()
+        log(f"[pipelined] cluster up and the parameters put in "
+            f"{time.perf_counter() - t0:.1f} s")
+        task = ray_tpu_torch.remote(num_gpus=0.5)(observe_request)
+        for tag in OBSERVE_TAGS:
+            s = time.perf_counter()
+            if tag == "pipelined":
+                out[tag] = pipelined_phase(card, data["serve"], task, params_box,
+                                           cfg, tokens, device, ledger)
+                ctx["host_e2e_ms_median"] = out[tag].pop("host_e2e_ms_median", None)
+            else:
+                out[tag] = observe_phase(card, data["serve"], task, params_box,
+                                         cfg, tokens, device, ledger, ctx)
+            log(f"[{tag}] took {time.perf_counter() - s:.1f} s")
+    finally:
+        ray_tpu_torch.shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        san.enable(saved_gate)
+    if "node_id" in ctx:
+        deadline = time.monotonic() + 10
+        while True:
+            left = cluster_processes(ctx["session"])
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        log(f"[observe] after shutdown: processes left {left}")
+        if left:
+            fail(f"[observe] the cluster left processes {left} after shutdown")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true")
@@ -6352,6 +6859,10 @@ def main() -> int:
     # the runtime on several nodes: two split-session nodes on this host
     free_device_memory()
     multi = multi_node_phases(card, {"serve": main_answers})
+    # pipelined submission and the observability planes: a sanitized
+    # one-node cluster of their own
+    free_device_memory()
+    observe = observe_phases(card, {"serve": main_answers})
 
     # top level: GPT-2's training path at its own shape; by_path: each main
     # path at its own shape with its own launches
@@ -6395,6 +6906,9 @@ def main() -> int:
         "multi_node_lineage": numbers(
             fwd["main"], multi["multi-node-lineage"]["launches"]["flash_fwd"]),
         "client": numbers(fwd["main"], multi["client"]["launches"]["flash_fwd"]),
+        "pipelined": numbers(fwd["main"],
+                             observe["pipelined"]["launches"]["flash_fwd"]),
+        "observe": numbers(fwd["main"], observe["observe"]["launches"]["flash_fwd"]),
     }
     bwd_paths = {
         "train": numbers(bwd["main"], train["launches"]["flash_bwd"]),

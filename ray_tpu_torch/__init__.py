@@ -36,14 +36,17 @@ _EXPORTS = {
     "_config": "ray_tpu_torch.core.config",
     "ObjectRef": "ray_tpu_torch.core.refs",
     "ObjectRefGenerator": "ray_tpu_torch.streaming",
+    "timeline": "ray_tpu_torch.api",
+    "profile_span": "ray_tpu_torch.tracing",
+    "remaining_time_s": "ray_tpu_torch.tracing",
 }
 
 
 def __getattr__(name):
     import importlib
 
-    if name == "exceptions":
-        value = importlib.import_module("ray_tpu_torch.exceptions")
+    if name in ("exceptions", "tracing"):
+        value = importlib.import_module(f"ray_tpu_torch.{name}")
     elif name in _EXPORTS:
         value = getattr(importlib.import_module(_EXPORTS[name]), name)
     else:
@@ -69,7 +72,11 @@ __all__ = [
     "cluster_resources",
     "available_resources",
     "nodes",
+    "timeline",
     "ObjectRef",
     "ObjectRefGenerator",
     "exceptions",
+    "tracing",
+    "profile_span",
+    "remaining_time_s",
 ]

@@ -4,8 +4,8 @@ The port's copy of ray_tpu/api.py. ``init()`` starts a one-node cluster of
 subprocesses (GCS, raylet, worker processes); ``init("host:port")`` joins
 one from another driver on the same host; ``init(local_mode=True)`` or
 ``RAY_TPU_LOCAL_MODE=1`` run the in-process runtime; ``init("ray://...")``
-connects a thin client to a ``ClientServer`` (client/). ``timeline`` waits
-for tracing.
+connects a thin client to a ``ClientServer`` (client/). ``timeline``
+exports the task events of ``tracing/`` as a Chrome trace.
 Parity: python/ray/_private/worker.py — `init` (:1106), `get` (:2409), `put`
 (:2524), `wait` (:2587); a process-global Worker singleton holds the active
 backend. In cluster mode this process is the *driver* (drivers are workers too).
@@ -16,9 +16,9 @@ from __future__ import annotations
 import atexit
 import inspect
 import os
-import threading
 from typing import Any, Dict, List, Optional, Sequence, Union
 
+from ray_tpu_torch.analysis import sanitizers as _san
 from ray_tpu_torch.actor import ActorClass, ActorHandle
 from ray_tpu_torch.core.backend import Backend
 from ray_tpu_torch.core.options import RemoteOptions, options_from_kwargs
@@ -40,7 +40,7 @@ class Worker:
 
 
 _worker = Worker()
-_init_lock = threading.Lock()
+_init_lock = _san.make_lock("api.init")
 
 
 def _global_worker() -> Worker:
@@ -230,3 +230,24 @@ def available_resources() -> Dict[str, float]:
 def nodes() -> List[dict]:
     _auto_init()
     return _worker.backend.nodes()
+
+
+def timeline(filename: Optional[str] = None) -> List[dict]:
+    """Chrome-trace export of task execution (parity: ray.timeline,
+    python/ray/_private/state.py), backed by the tracing subsystem
+    (ray_tpu_torch/tracing/): one trace-process row per node, one thread row per
+    worker; RUNNING→EXECUTED/FINISHED/FAILED pairs render as complete ("X")
+    slices, other lifecycle transitions as instants, profile_span() spans
+    as slices on the worker that recorded them. Open the file in
+    chrome://tracing or Perfetto. Returns the event list; also writes JSON
+    when `filename` is given."""
+    import json
+
+    from ray_tpu_torch.tracing import build_chrome_trace
+    from ray_tpu_torch.util.state import timeline_events
+
+    out = build_chrome_trace(timeline_events())
+    if filename:
+        with open(filename, "w") as f:
+            json.dump(out, f)
+    return out

@@ -4,7 +4,8 @@ The port's copy of ray_tpu/core/config.py, cut to the fields the ported
 modules read (names and defaults the reference's): every tunable lives in
 this table, overridable via ``RAY_TPU_<NAME>`` environment variables,
 readable as ``ray_tpu_torch._config.<name>``. The other planes' fields
-(serve, tracing, metrics, pipelined submission) come with those planes.
+(serve, chaos, autoscaling, the GCS's shipped task-event WAL tails) come
+with those planes.
 """
 
 from __future__ import annotations
@@ -46,6 +47,24 @@ class Config:
     # hinted bytes) from each candidate's utilization score. 0 disables
     # locality (hints still ride the wire).
     locality_weight: float = 0.5
+    # pipelined submission: up to this many of one owner's tasks can share
+    # one leased worker, overlapping the wire round trip of task N+1 with
+    # the worker-side execution of task N. Execution stays one at a time
+    # through the worker's run slot; a task blocked in get() (or a stream
+    # wait) hands its slot to the next queued task, so tasks that get tasks
+    # make progress. Tasks that block outside get() are covered by work
+    # stealing (worker_stealing_enabled).
+    worker_max_tasks_in_flight: int = 10
+    # bounded commitment for pipelined pushes: a pushed task that cannot
+    # START within this window bounces back ({"requeue": True}) and the
+    # owner resubmits it to another worker: the fallback bound behind work
+    # stealing, for when no worker is idle
+    worker_requeue_after_ms: int = 200
+    # work stealing: when a leased worker goes fully idle, the owner asks
+    # its most-loaded leased worker of the same scheduling key to give back
+    # queued, never-started specs, which resubmit to the idle worker at
+    # once instead of waiting out worker_requeue_after_ms
+    worker_stealing_enabled: bool = True
 
     # --- object store -------------------------------------------------------
     object_store_memory_mb: int = 2048
@@ -116,6 +135,14 @@ class Config:
     gcs_snapshot_interval_s: float = 15.0
     gcs_close_snapshot_timeout_s: float = 10.0
 
+    # --- deadline clock-skew guard ------------------------------------------
+    # absolute deadlines are wall-clock epoch seconds minted by the owner;
+    # a receiving host whose clock disagrees with the owner's by more than
+    # this (estimated from the spec's minted (wall, mono) pair) re-anchors
+    # the remaining budget to its own clock instead of falsely shedding
+    # (task_spec.effective_deadline)
+    deadline_skew_tolerance_s: float = 5.0
+
     # --- timeouts / health --------------------------------------------------
     health_check_period_ms: int = 1_000
     health_check_failure_threshold: int = 5
@@ -141,8 +168,44 @@ class Config:
     # train: per-round driver wait on worker polls before probing liveness
     train_poll_timeout_s: float = 120.0
 
-    # --- logging ------------------------------------------------------------
+    # --- logging / events ---------------------------------------------------
     log_to_driver: bool = True
+    # tracing (ray_tpu_torch/tracing/): master switch for task-event recording
+    task_events_enabled: bool = True
+    # deterministic trace/task sampling in [0, 1]: whole traces keep or drop
+    # together (hash of the trace/task id), never half-recorded requests
+    task_events_sample_rate: float = 1.0
+    # per-process bounded buffer; overflow drops (and counts) instead of
+    # blocking the hot path
+    task_events_buffer_size: int = 10_000
+    task_events_flush_interval_ms: int = 1_000
+    # GCS-side retention: max tasks kept in the aggregator (oldest evicted)
+    task_events_max_tasks: int = 10_000
+    # per-job retention: a chatty job evicts its own oldest tasks before it
+    # can push another job's history out of the aggregator
+    task_events_max_tasks_per_job: int = 5_000
+    # crash forensics: workers append each recorded event to a per-worker
+    # WAL file in the session dir before the periodic flush; the raylet
+    # recovers a SIGKILLed worker's orphaned WAL into the aggregator so the
+    # final second of spans still closes its timeline
+    task_events_wal_enabled: bool = True
+    metrics_report_interval_ms: int = 2_000
+    # master switch for the built-in hot-path instrumentation (raylet
+    # lease-grant latency, task latency, streaming series); user-defined
+    # metrics are unaffected
+    metrics_enabled: bool = True
+    # how many merged snapshots the GCS (and local backend) keep as the
+    # metrics time series, sampled every metrics_report_interval_ms
+    # (240 x 2s = 8 minutes of history by default)
+    metrics_timeseries_depth: int = 240
+
+    # --- dev-mode runtime sanitizers (RAY_TPU_SANITIZE=1, analysis/) -------
+    # io-loop watchdog: a loop that fails to run a scheduled heartbeat for
+    # this long is recorded as a stall violation (a blocking call is
+    # squatting the loop)
+    sanitize_loop_stall_s: float = 5.0
+    # how often the watchdog pings each registered EventLoopThread
+    sanitize_loop_ping_interval_s: float = 1.0
 
     def __post_init__(self):
         for f in fields(self):

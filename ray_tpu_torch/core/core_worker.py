@@ -11,16 +11,18 @@ Every CoreWorker runs an RPC server on the io-loop thread; owners serve
 `push_actor_task` (handled in worker_main.WorkerAgent which subclasses this).
 
 The port's copy of ray_tpu/core/core_worker.py: submission with cached
-leases (one task at a time on a leased worker), ownership, distributed
-reference counting, borrows, lineage reconstruction, pin renewal and the
-per-actor ordered submission window, and the owner side of streaming
-generators (``num_returns="streaming"``: items pushed by the producing
-worker into this owner's store as they are yielded). Not ported yet: the
-reference's pipelined submission (several tasks in flight on one leased
-worker) with its work stealing and requeue bound. Cut with their planes:
-task events and trace/job/deadline propagation (tracing), metrics (among
-them the count of stream items spilled to shm), and ``runtime_env``
-(refused with NotImplementedError). Across nodes it is the reference's: a
+leases, pipelined (up to ``worker_max_tasks_in_flight`` specs in flight on
+one leased worker, breadth first) with work stealing and the requeue bound,
+ownership, distributed reference counting, borrows, lineage
+reconstruction, pin renewal and the per-actor ordered submission window,
+the owner side of streaming generators (``num_returns="streaming"``: items
+pushed by the producing worker into this owner's store as they are
+yielded), task events with trace, job and deadline propagation (tracing),
+the shedding of expired deadlines, and the metrics flush. ``runtime_env``
+is refused with NotImplementedError. ``lease_stats`` counts what the
+pipeline did (the most specs one lease carried at once, and the specs
+bounced back by a steal or the requeue bound). Across nodes it is the
+reference's: a
 remote read asks the local raylet to pull (chunked stream, native daemon or
 rpc; the pull manager's ladder), then fetches straight from the holder,
 then probes the GCS for a surviving copy, and only then gives
@@ -38,11 +40,13 @@ import threading
 import time
 import weakref
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import cloudpickle
 
 from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch import tracing
+from ray_tpu_torch.analysis import sanitizers as _san
 from ray_tpu_torch.core import rpc, serialization, task_spec as ts
 from ray_tpu_torch.core.config import _config
 from ray_tpu_torch.core.ids import ActorID, ObjectID, TaskID, WorkerID
@@ -117,15 +121,19 @@ class _MemoryStore:
         self._events.pop(oid, None)
 
 
-@dataclass(eq=False)  # identity semantics: list.remove can never conflate
-class _LeaseEntry:    # two same-shaped leases
+@dataclass(eq=False)  # identity semantics: hashable for the pool's WeakSet,
+class _LeaseEntry:    # and list.remove can never conflate two same-shaped leases
     """One cached worker lease (scheduling-key lease reuse).
 
-    A lease runs one task at a time: ``inflight`` is 1 between acquire and
-    release; ``pooled`` mirrors membership in pool.idle (single source of
-    truth for the list); ``dropped`` makes concurrent failure paths return
-    the lease only once. ``gpu_ids`` are the cards the raylet gave the
-    lease, which the worker makes its CUDA_VISIBLE_DEVICES.
+    A lease admits up to ``worker_max_tasks_in_flight`` concurrent
+    submissions (pipelined submission: the wire round trip of task N+1
+    overlaps the worker-side execution of task N — without it, in-flight
+    concurrency is capped at the number of leases).
+    ``inflight`` counts submissions between acquire and release; ``pooled``
+    mirrors membership in pool.idle (single source of truth for the list);
+    ``dropped`` makes concurrent failure paths return the lease only once.
+    ``gpu_ids`` are the cards the raylet gave the lease, which the worker
+    makes its CUDA_VISIBLE_DEVICES.
     """
 
     raylet: Any
@@ -137,6 +145,10 @@ class _LeaseEntry:    # two same-shaped leases
     inflight: int = 0
     pooled: bool = False
     dropped: bool = False
+    # a requeue bounce sets this: don't pipeline MORE tasks onto this
+    # worker (its current task is long/blocking) until the window passes;
+    # taking it at inflight == 0 is always fine
+    defer_pipeline_until: float = 0.0
     gpu_ids: Optional[List[str]] = None
 
 
@@ -148,10 +160,19 @@ class _LeasePool:
         self.pending = 0  # unresolved lease REQUESTS only (rate-limit gate)
         self.backlog = 0  # submitters currently inside _acquire_lease
         self.batch_inflight = False  # one opportunistic batch request at a time
+        self.last_kick = 0.0  # last backlog-sized batch request (cooldown)
+        self.last_steal = 0.0  # work-stealing trigger cooldown
         self.error: Optional[BaseException] = None  # latest failed request
         from collections import deque
 
         self._waiters: "deque" = deque()
+        # every live entry of this key, including full-window ones that left
+        # pool.idle — the work-stealing trigger needs to see busy victims
+        # (weak: an entry is alive while pool.idle or an in-flight
+        # submission holds it)
+        import weakref
+
+        self.entries: "weakref.WeakSet" = weakref.WeakSet()
 
     def wake(self):
         """Wake exactly ONE waiter (a released entry serves one task; waking
@@ -248,15 +269,53 @@ class CoreWorker:
         self.gcs: Optional[rpc.Connection] = None
         self.raylet: Optional[rpc.Connection] = None
         self.address: Optional[str] = None
-        # driver: GCS-assigned job id
+        # observability: bounded per-process task-event buffer, flushed to
+        # the GCS aggregator periodically (ray_tpu_torch/tracing/)
+        self.events = tracing.get_buffer()
+        # what the pipeline did: the most specs one lease carried at once,
+        # and the specs a worker bounced back (stolen by an idle peer's
+        # owner, or unstarted past worker_requeue_after_ms)
+        self.lease_stats = {"max_inflight": 0, "stolen": 0, "requeued": 0}
+        # driver: GCS-assigned job id; workers tag submissions with the
+        # EXECUTING task's job instead (tracing.current_job_id())
         self.job_id: Optional[str] = None
-        self._lock = threading.Lock()
+        self._lock = _san.make_lock("core.worker")
         # actor lifecycle listeners fed by the GCS "actor" pubsub channel
         # (compiled graphs subscribe their participants here)
         self._actor_listeners: List[Any] = []
         # live streaming generators owned by this process, by task_id bytes
         # (workers push items into handle_stream_item; consumers iterate)
         self._streams: Dict[bytes, Any] = {}
+
+    @staticmethod
+    def _stamp_deadline_clocks(spec: ts.TaskSpec) -> None:
+        """Deadline-carrying specs record the owner's wall AND monotonic
+        clocks at submission, so a receiving host can re-anchor the
+        deadline into its own clock domain (ts.effective_deadline) instead
+        of trusting raw cross-host wall-clock comparison (NTP skew guard)."""
+        if spec.deadline is None:
+            return
+        spec.deadline_minted_wall = time.time()
+        spec.deadline_minted_mono = time.monotonic()
+
+    def _shed_expired(self, spec: ts.TaskSpec) -> bool:
+        """Owner-side admission: True when the spec's deadline has already
+        passed — the caller sheds it typed instead of dispatching work
+        whose client gave up."""
+        if spec.deadline is None or time.time() < spec.deadline:
+            return False
+        from ray_tpu_torch.util.metrics import deadline_expired_counter
+
+        c = deadline_expired_counter()
+        if c is not None:
+            c.inc(1.0, {"where": "owner"})
+        return True
+
+    def _deadline_error(self, spec: ts.TaskSpec) -> exc.DeadlineExceededError:
+        return exc.DeadlineExceededError(
+            f"task {spec.name} shed before dispatch: request deadline "
+            f"exceeded by {time.time() - spec.deadline:.3f}s"
+        )
 
     @staticmethod
     def _backoff(attempt: int, actor: bool = False) -> float:
@@ -280,6 +339,9 @@ class CoreWorker:
         self.server = rpc.RpcServer(self)
         await self.server.start()
         self.address = self.server.address
+        # default attribution for spans recorded in this process
+        # (profile_span) — puts them on this worker's timeline row
+        self.events.set_identity(self.node_id, self.address)
         # generous retry window: daemons may still be importing (cold start on
         # a loaded host takes seconds)
         self.gcs = await rpc.connect(
@@ -299,6 +361,7 @@ class CoreWorker:
         for loop_coro in (
             self._gcs_watchdog(), self._lease_reaper_loop(),
             self._pin_renew_loop(),
+            self._flush_task_events_loop(), self._metrics_flush_loop(),
         ):
             self._hold_bg(asyncio.ensure_future(loop_coro))
 
@@ -354,6 +417,29 @@ class CoreWorker:
             except Exception:  # noqa: BLE001 - listeners must not break io
                 logger.exception("actor listener failed")
 
+    async def _metrics_flush_loop(self):
+        """Flush this process's metrics registry (util/metrics.py) to the
+        GCS — covers user-defined Counters/Gauges/Histograms recorded in
+        tasks/actors on workers, and in driver code."""
+        from ray_tpu_torch.util import metrics as metrics_api
+
+        period = max(_config.metrics_report_interval_ms, 100) / 1000
+        source = f"{self.mode}-{self.worker_id.hex()[:12]}"
+        while True:
+            await asyncio.sleep(period)
+            try:
+                # wire counters aggregate cluster-wide as registry Counters
+                rpc.publish_wire_counters()
+                samples = metrics_api.get_registry().collect()
+                if samples and self.gcs is not None and not self.gcs.closed:
+                    await self.gcs.notify(
+                        "report_metrics", source=source, samples=samples
+                    )
+            except (rpc.RpcError, rpc.ConnectionLost):
+                pass
+            except Exception:  # noqa: BLE001
+                logger.exception("metrics flush error")
+
     async def _gcs_watchdog(self):
         """Re-dial the GCS if it restarts (fault tolerance: the store-backed
         GCS comes back on the same address and we re-register)."""
@@ -393,6 +479,13 @@ class CoreWorker:
                     except (rpc.RpcError, rpc.ConnectionLost):
                         break
                 logger.warning("reconnected to GCS at %s", self.gcs_address)
+                if _config.metrics_enabled:
+                    from ray_tpu_torch.util.metrics import Counter
+
+                    Counter(
+                        "gcs_reconnects_total",
+                        "successful re-dials of a restarted GCS",
+                    ).inc(1.0)
             except rpc.ConnectionLost:
                 pass
 
@@ -517,6 +610,7 @@ class CoreWorker:
         if state is not None:
             state.fail(error)
         self._unpin_task_args(spec.task_id)
+        self._record_task_event(spec, "FAILED")
         return True
 
     async def handle_stream_item(self, conn, task_id_hex, index, kind,
@@ -543,8 +637,7 @@ class CoreWorker:
                 # bound land in the shm store (restored through the
                 # normal location path on consume) instead of growing the
                 # owner heap without bound
-                self._put_shm(oid, data)
-                self.memory_store.put_value(oid, None)  # shm-location marker
+                self._spill_stream_item(oid, data)
             else:
                 self.memory_store.put_value(oid, data)
         elif kind == "location":
@@ -561,8 +654,33 @@ class CoreWorker:
                 return {"closed": True}
         return {"consumed": state.consumed}
 
+    _m_stream_spills = None
+
+    def _spill_stream_item(self, oid: ObjectID, data) -> None:
+        """Write one overflowing stream item to the local shm store with a
+        location marker; the consumer's get restores it transparently
+        (locations → _read_location → local shm read) and the normal free
+        path reclaims it."""
+        self._put_shm(oid, data)  # shm write + location record + notify
+        self.memory_store.put_value(oid, None)  # shm-location marker
+        if _config.metrics_enabled:
+            if CoreWorker._m_stream_spills is None:
+                from ray_tpu_torch.util.metrics import Counter
+
+                CoreWorker._m_stream_spills = Counter(
+                    "streaming_spilled_items_total",
+                    "overflowing stream items spilled to the shm store",
+                )
+            CoreWorker._m_stream_spills.inc(1.0)
+
     # ------------------------------------------------------------- put/get
-    def _put_one(self, value: Any) -> ObjectRef:
+    # tracing: put/get record "core.put"/"core.get" spans, but only for
+    # operations that took >= _PROFILE_MIN_DUR_S — sub-millisecond hot-path
+    # calls (inline-ready gets, tiny puts) stay span-free so tight get/put
+    # loops don't flood the bounded event buffer.
+    _PROFILE_MIN_DUR_S = 0.001
+
+    def _put_one(self, value: Any) -> Tuple[ObjectRef, int]:
         """Shared body of put/put_batch: allocate, serialize, own, store."""
         oid = ObjectID.for_put(self.worker_id)
         data = serialization.serialize(value).to_bytes()
@@ -572,17 +690,40 @@ class CoreWorker:
             self.memory_store.put_value(oid, data)
         else:
             self._put_shm(oid, data)
-        return ref
+        return ref, len(data)
 
     def put(self, value: Any) -> ObjectRef:
-        return self._put_one(value)
+        t0 = time.perf_counter()
+        ref, nbytes = self._put_one(value)
+        dur = time.perf_counter() - t0
+        if dur >= self._PROFILE_MIN_DUR_S and self.events.enabled():
+            self.events.record_profile(
+                "core.put", dur=dur, component="core",
+                node_id=self.node_id, worker=self.address,
+                args={"nbytes": nbytes},
+            )
+        return ref
 
     def put_batch(self, values: Sequence[Any]) -> List[ObjectRef]:
-        """Batched ray.put: one pass, shm location records coalesced into a
-        single object_added_batch flush (the dispatch-plane metadata
-        batching). Per-value work is already loop-wake-free for small
-        objects (see _MemoryStore._wake)."""
-        return [self._put_one(value) for value in values]
+        """Batched ray.put: one pass, one profile span, shm location
+        records coalesced into a single object_added_batch flush (the
+        dispatch-plane metadata batching). Per-value work is already
+        loop-wake-free for small objects (see _MemoryStore._wake)."""
+        t0 = time.perf_counter()
+        refs = []
+        total = 0
+        for value in values:
+            ref, nbytes = self._put_one(value)
+            total += nbytes
+            refs.append(ref)
+        dur = time.perf_counter() - t0
+        if dur >= self._PROFILE_MIN_DUR_S and self.events.enabled():
+            self.events.record_profile(
+                "core.put_batch", dur=dur, component="core",
+                node_id=self.node_id, worker=self.address,
+                args={"num": len(refs), "nbytes": total},
+            )
+        return refs
 
     def _put_shm(self, oid: ObjectID, data: bytes):
         self.shm.put_bytes(oid, data)
@@ -713,6 +854,22 @@ class CoreWorker:
                     await asyncio.sleep(0.05)
 
     def get(self, refs: Sequence[ObjectRef], timeout: Optional[float]) -> List[Any]:
+        if not self.events.enabled():
+            return self._get_untraced(refs, timeout)
+        t0 = time.perf_counter()
+        try:
+            return self._get_untraced(refs, timeout)
+        finally:
+            dur = time.perf_counter() - t0
+            if dur >= self._PROFILE_MIN_DUR_S:
+                self.events.record_profile(
+                    "core.get", dur=dur, component="core",
+                    node_id=self.node_id, worker=self.address,
+                    args={"num_refs": len(refs)},
+                )
+
+    def _get_untraced(self, refs: Sequence[ObjectRef],
+                      timeout: Optional[float]) -> List[Any]:
         # Fast path: every ref already resolved INLINE in our memory store →
         # decode on the calling thread, skipping the io-loop round trip
         # (~0.5ms each under load). This is the hot shape of streaming
@@ -870,7 +1027,7 @@ class CoreWorker:
                     source_addr=loc["raylet_addr"],
                     nbytes=loc.get("nbytes"),
                     priority="arg",
-                    job_id=self.job_id,
+                    job_id=self.job_id or tracing.current_job_id(),
                     timeout=timeout + 30,
                 )
             except (rpc.RpcError, rpc.ConnectionLost):
@@ -1103,8 +1260,14 @@ class CoreWorker:
             placement_group_bundle_index=pg_index,
             streaming=streaming,
             backpressure=options.generator_backpressure_num_objects,
+            trace_id=tracing.current_trace_id(),
+            parent_task_id=tracing.current_task_id(),
+            job_id=self.job_id or tracing.current_job_id(),
+            deadline=tracing.current_deadline(),
         )
+        self._stamp_deadline_clocks(spec)
         self._pin_task_args(task_id, enc_args, enc_kwargs)
+        self._record_task_event(spec, "SUBMITTED")
         if streaming:
             from ray_tpu_torch.streaming import ObjectRefGenerator
 
@@ -1129,6 +1292,9 @@ class CoreWorker:
         fails with the typed error and the consumer's next item raises."""
         attempts = 0
         while True:
+            if self._shed_expired(spec):
+                self._fail_stream(spec, self._deadline_error(spec))
+                return
             try:
                 result = await self._submit_once(spec)
                 self._store_task_result(spec, [], result)
@@ -1158,6 +1324,11 @@ class CoreWorker:
     async def _submit_and_track(self, spec: ts.TaskSpec, refs: List[ObjectRef]):
         attempts = 0
         while True:
+            if self._shed_expired(spec):
+                self._store_task_error(
+                    refs, self._deadline_error(spec), spec=spec
+                )
+                return
             try:
                 result = await self._submit_once(spec)
                 self._store_task_result(spec, refs, result)
@@ -1286,6 +1457,9 @@ class CoreWorker:
                 entry = await self._acquire_lease(pool, spec)
             finally:
                 pool.backlog -= 1
+            self._record_task_event(
+                spec, "DISPATCHED", worker=entry.worker_addr
+            )
             try:
                 # batched push: specs headed to the same worker connection in
                 # the same loop tick share one multi-spec BATCH frame; the
@@ -1303,10 +1477,21 @@ class CoreWorker:
                 raise
             finally:
                 self._release_lease_slot(pool, entry)
+            if isinstance(result, dict) and result.get("requeue"):
+                # the worker couldn't START it within worker_requeue_after_ms
+                # (long/blocking task holds the run slot), or an idle peer's
+                # steal took it back: resubmit to another worker and stop
+                # pipelining onto this one meanwhile
+                self.lease_stats[
+                    "stolen" if result.get("why") == "stolen" else "requeued"
+                ] += 1
+                entry.defer_pipeline_until = time.monotonic() + 1.0
+                continue
             return result
 
     def _release_lease_slot(self, pool: "_LeasePool", entry: "_LeaseEntry"):
-        """The lease's task settled: re-pool the entry."""
+        """One pipelined submission settled: free its slot and re-pool the
+        entry if the full window had taken it out of pool.idle."""
         entry.inflight -= 1
         entry.last_used = time.monotonic()
         if entry.conn is not None and entry.conn.closed:
@@ -1317,7 +1502,48 @@ class CoreWorker:
         if not entry.dropped and not entry.pooled:
             entry.pooled = True
             pool.idle.append(entry)
+        if not entry.dropped:
+            pool.entries.add(entry)
+            if entry.inflight == 0:
+                # this worker just went fully idle: reclaim queued specs
+                # stuck behind a busy peer so they run HERE instead of
+                # waiting out worker_requeue_after_ms
+                self._maybe_steal(pool, entry)
         pool.wake()
+
+    def _maybe_steal(self, pool: "_LeasePool", idle_entry: "_LeaseEntry"):
+        """Work stealing (owner-side trigger): an idle leased worker +
+        a same-key peer with queued (inflight >= 2) specs means those specs
+        are pointlessly serialized — ask the most-loaded peer to bounce its
+        queued-but-not-started specs; each bounce resubmits through
+        _submit_once and lands on the idle entry."""
+        if not _config.worker_stealing_enabled:
+            return
+        now = time.monotonic()
+        if now - pool.last_steal < 0.005:
+            return
+        victim = None
+        for e in pool.entries:
+            if (e is idle_entry or e.dropped or e.inflight < 2
+                    or e.conn is None or e.conn.closed):
+                continue
+            if victim is None or e.inflight > victim.inflight:
+                victim = e
+        if victim is None:
+            return
+        pool.last_steal = now
+        n = victim.inflight - 1  # leave the running task in place
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:  # not on the io loop (shutdown path): skip
+            return
+        self._hold_bg(loop.create_task(self._send_steal(victim, n)))
+
+    async def _send_steal(self, victim: "_LeaseEntry", n: int):
+        try:
+            await victim.conn.notify("steal_tasks", n=n)
+        except Exception:  # noqa: BLE001 - advisory; requeue timer backstops
+            pass
 
     async def _acquire_lease(self, pool: "_LeasePool", spec) -> "_LeaseEntry":
         """Take an idle cached lease, or request a fresh one.
@@ -1331,14 +1557,41 @@ class CoreWorker:
         SHARED pool before being re-popped, so a grant arriving while a
         cached entry freed up serves whichever waiter is first.
         """
+        depth = max(1, _config.worker_max_tasks_in_flight)
         while True:
             while pool.idle:
-                entry = pool.idle.pop()
-                entry.pooled = False
+                # breadth first: the least-loaded leased worker takes the
+                # next task (pipelining fills a second slot on a busy worker
+                # only once every worker has one); pool.idle is O(#workers).
+                # Entries a requeue bounce marked defer_pipeline_until are
+                # skipped for PIPELINED placement (their running task is
+                # long/blocking) but stay takeable at inflight == 0.
+                now = time.monotonic()
+                usable = [
+                    e for e in pool.idle
+                    if e.inflight == 0 or now >= e.defer_pipeline_until
+                ]
+                if not usable:
+                    break  # only deferred busy workers: get a fresh lease
+                entry = min(usable, key=lambda e: e.inflight)
                 if entry.conn is None or entry.conn.closed:
+                    pool.idle.remove(entry)
+                    entry.pooled = False
                     await self._drop_lease(pool, entry)
                     continue
+                if entry.inflight > 0:
+                    # Pipelining onto a busy worker: fine for overlapping
+                    # the wire, but it must not CAP parallelism — keep one
+                    # lease request in flight so grants grow the pool to
+                    # what the cluster can actually run.
+                    self._kick_backlog_lease(pool, spec)
                 entry.inflight += 1
+                if entry.inflight > self.lease_stats["max_inflight"]:
+                    self.lease_stats["max_inflight"] = entry.inflight
+                if entry.inflight >= depth:
+                    # window full: out of the pool until a slot frees
+                    pool.idle.remove(entry)
+                    entry.pooled = False
                 return entry
             # Rate-limit UNRESOLVED requests only (matching the reference's
             # lease-request limiter): granted leases are unbounded, so
@@ -1453,6 +1706,27 @@ class CoreWorker:
         self._pool_entry(pool, entry)
 
 
+    def _kick_backlog_lease(self, pool: "_LeasePool", spec) -> None:
+        """Fire-and-forget one batched lease request, sized to the key's
+        backlog, when submissions are stacking onto busy workers and nothing
+        is pending. Grants land in the shared pool (zero-inflight entries
+        every later submitter prefers); `backlogged` replies just free the
+        budget. The raylet drops non-granted batch demand (by design — see
+        handle_request_lease_batch), so the cooldown re-poll is what keeps
+        a standing demand signal at the raylet while a burst lasts: each
+        kick also lets its dispatch tick spawn one more worker."""
+        if pool.pending > 0 or pool.batch_inflight:
+            return
+        now = time.monotonic()
+        if now - pool.last_kick < 0.01:
+            return
+        pool.last_kick = now
+        budget = _config.max_pending_lease_requests_per_scheduling_key
+        count = max(1, min(pool.backlog, budget))
+        pool.batch_inflight = True
+        pool.pending += count
+        self._hold_bg(asyncio.ensure_future(self._prefetch_leases(pool, spec, count)))
+
     async def _prefetch_leases(self, pool: "_LeasePool", spec, count: int):
         """Opportunistic batched lease request (raylet request_lease_batch):
         one RPC asks for `count` leases on behalf of the scheduling key's
@@ -1515,10 +1789,11 @@ class CoreWorker:
             pool.wake_all()
 
     async def _drop_lease(self, pool, entry: "_LeaseEntry"):
-        if entry.dropped:  # concurrent failure paths may both see the death
+        if entry.dropped:  # pipelined peers may all observe the same death
             pool.wake()
             return
         entry.dropped = True
+        pool.entries.discard(entry)
         if entry.pooled:
             entry.pooled = False
             try:
@@ -1561,6 +1836,12 @@ class CoreWorker:
                     pg_id=spec.placement_group_id,
                     bundle_index=spec.placement_group_bundle_index,
                     req_id=req_id,
+                    # tracing: the raylet records the LEASED event for the
+                    # task that triggered this request (cached-lease reuse
+                    # means later same-key tasks skip the raylet entirely)
+                    task_id=spec.task_id.hex(),
+                    task_name=spec.name,
+                    trace_id=spec.trace_id,
                     # locality: where this task's by-ref args live, so the
                     # raylet can grant near the bytes / prefetch the rest
                     arg_hints=self._arg_hints(spec),
@@ -1713,6 +1994,11 @@ class CoreWorker:
                 for ok in pins:
                     self._granted_by_outer.setdefault(ok, set()).add(key)
         self._unpin_task_args(spec.task_id)
+        failed = any(kind == "error" for kind, _ in entries) or any(
+            kind == "streamed" and payload.get("error")
+            for kind, payload in result["results"]
+        )
+        self._record_task_event(spec, "FAILED" if failed else "FINISHED")
 
     def _store_task_error(self, refs, error: BaseException, spec=None):
         if spec is not None and self._fail_stream(spec, error):
@@ -1721,6 +2007,31 @@ class CoreWorker:
             self.memory_store.put_error(ref.id, error)
         if refs:
             self._unpin_task_args(refs[0].task_id)
+        if spec is not None:
+            self._record_task_event(spec, "FAILED")
+
+    # ---------------------------------------------------------- task events
+    def _record_task_event(self, spec, state: str, worker: Optional[str] = None,
+                           args: Optional[dict] = None) -> None:
+        self.events.record(
+            task_id=spec.task_id.hex(),
+            name=spec.name,
+            state=state,
+            attempt=getattr(spec, "attempt", 0),
+            parent_id=getattr(spec, "parent_task_id", None),
+            actor_id=spec.actor_id.hex() if spec.actor_id else None,
+            node_id=self.node_id,
+            worker=worker or self.address,
+            trace_id=getattr(spec, "trace_id", None),
+            job_id=getattr(spec, "job_id", None),
+            args=args,
+        )
+
+    async def _flush_task_events_loop(self):
+        await tracing.events.flush_task_events_loop(
+            self.events, lambda: self.gcs,
+            source=f"{self.mode}-{self.worker_id.hex()[:12]}",
+        )
 
     # ----------------------------------------------- distributed refcounting
     # Owner-based (reference_count.h:61): the submitting/putting process owns
@@ -2025,7 +2336,13 @@ class CoreWorker:
             max_retries=options.max_task_retries,
             streaming=streaming,
             backpressure=options.generator_backpressure_num_objects,
+            trace_id=tracing.current_trace_id(),
+            parent_task_id=tracing.current_task_id(),
+            job_id=self.job_id or tracing.current_job_id(),
+            deadline=tracing.current_deadline(),
         )
+        self._stamp_deadline_clocks(spec)
+        self._record_task_event(spec, "SUBMITTED")
         out = None
         if streaming:
             from ray_tpu_torch.streaming import ObjectRefGenerator
@@ -2071,6 +2388,16 @@ class CoreWorker:
             seq = st.next_seq
             st.next_seq += 1
             await st.gate.wait()        # closed while a recovery is replaying
+            if self._shed_expired(spec):
+                # queued past its deadline (window full behind a slow actor):
+                # shed typed without burning a wire round trip
+                if spec.streaming:
+                    self._fail_stream(spec, self._deadline_error(spec))
+                else:
+                    self._store_task_error(
+                        refs, self._deadline_error(spec), spec=spec
+                    )
+                continue
             await st.sem.acquire()
             st.inflight[seq] = (spec, refs)
             try:
@@ -2213,6 +2540,11 @@ class CoreWorker:
         call_attempt = 0
         resolve_attempt = 0
         while True:
+            if self._shed_expired(spec):
+                self._store_task_error(
+                    refs, self._deadline_error(spec), spec=spec
+                )
+                return
             addr = await self._resolve_actor(spec.actor_id.binary())
             if addr is None:
                 self._store_task_error(

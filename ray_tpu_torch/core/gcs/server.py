@@ -6,9 +6,10 @@ lifecycle + restarts, placement groups, resource view aggregation, pubsub.
 Single asyncio process. Durability (the reference's Redis store_client,
 src/ray/gcs/store_client/): every durable-table mutation appends to a
 write-ahead log BEFORE its RPC reply is sent (core/gcs/wal.py), and a
-periodic compaction replaces the log with a full-table snapshot. Restore =
-snapshot + WAL
-replay, tolerant of a torn final record — an unclean GCS death at ANY
+periodic compaction replaces the log with a full-table snapshot that also
+captures the soft state worth keeping across a restart (metrics ring,
+task-event aggregator). Restore = snapshot + WAL replay, tolerant of a
+torn final record — an unclean GCS death at ANY
 instruction loses zero acknowledged mutations.
 
 Connections are bidirectional: raylets register once and the same connection
@@ -17,13 +18,13 @@ separate client channel needed.
 
 The port's copy of ray_tpu/core/gcs/server.py: nodes and health checks, the
 KV store, functions, jobs, actors with restarts, placement groups, pubsub
-(logs, actor and node events) and the snapshot + WAL of the durable tables.
-Cut with their planes: the task-event aggregator and shipped worker WAL tails
-(tracing), the metrics registry merge and time series (metrics), chaos
+(logs, actor and node events), the snapshot + WAL of the durable tables,
+the task-event aggregator (tracing) and the metrics registry merge and time
+series (metrics) behind the state API. Cut with their planes: chaos
 installs, the compiled-graph channel-endpoint registry (cgraph), the
-autoscaler's cluster load (autoscaling), and the ingestion of dead nodes'
-shipped task-event WAL tails (tracing). Nodes register with their native
-transfer daemon's port; the secondary-copy object directory, with the
+autoscaler's cluster load (autoscaling), and the shipped task-event WAL
+tails of dead nodes (whole-node-loss forensics). Nodes register with their
+native transfer daemon's port; the secondary-copy object directory, with the
 dead-node promotion of a surviving copy and the adoption of a dead node's
 spill file, is the reference's.
 """
@@ -157,6 +158,21 @@ class GcsServer:
         # the owner-recorded primary location and the table re-fills.
         self.object_locations: Dict[str, Dict[str, dict]] = {}
         self._object_loc_rr: Dict[str, int] = {}
+        # observability: bounded per-task event aggregation (GcsTaskManager
+        # analog, gcs_task_manager.h:61) + monotonically-counted metrics
+        from ray_tpu_torch.tracing import TaskEventAggregator
+
+        self.task_events = TaskEventAggregator()
+        self.metrics: Dict[str, int] = {}
+        # metrics plane: {source: (ts, [series snapshots])} flushed by every
+        # process's registry (util/metrics.py); dashboard /metrics renders
+        # the merge, and a bounded ring of merged snapshots (sampled every
+        # metrics_report_interval_ms) backs get_metrics_timeseries — "what
+        # was p99 five minutes ago" without an external Prometheus.
+        self.metric_reports: Dict[str, Tuple[float, list]] = {}
+        from ray_tpu_torch.util.metrics import MetricsTimeSeries
+
+        self.timeseries = MetricsTimeSeries()
         self._bg: List[asyncio.Task] = []
         # strong refs to one-shot retry tasks until done (the loop holds
         # tasks weakly: a bare ensure_future in a timer callback is
@@ -191,6 +207,7 @@ class GcsServer:
             self._schedule_restored()
         await self.server.start()
         self._bg.append(asyncio.create_task(self._health_check_loop()))
+        self._bg.append(asyncio.create_task(self._metrics_sample_loop()))
         if self.store_path:
             self._bg.append(asyncio.create_task(self._compaction_loop()))
         logger.info("GCS listening on %s", self.server.address)
@@ -207,17 +224,18 @@ class GcsServer:
 
     async def _close_snapshot(self) -> None:
         """Final snapshot on graceful close: same shape as a compaction —
-        rotate + durable-table capture on the loop, pickle + prune on the
-        executor — but with a bounded wait instead
+        rotate + durable-table capture on the loop, heavy copy-outs +
+        pickle + prune on the executor — but with a bounded wait instead
         of blocking the event loop synchronously. On timeout the sealed
         WAL segments still hold every acknowledged mutation, so nothing
         is lost; the next start just replays a longer log."""
         self._snap_gen += 1
         gen = self._snap_gen
         seq = self.wal.rotate() if self.wal is not None else 0
-        state = self._snapshot_state(seq)
+        state = self._snapshot_state(seq, include_heavy=False)
 
         def write():
+            self._snapshot_heavy(state)
             self._install_snapshot(gen, state, seq)
 
         try:
@@ -283,6 +301,13 @@ class GcsServer:
             replayed += 1
         if replayed:
             logger.info("GCS WAL replay: %d record(s) past snapshot", replayed)
+            if _config.metrics_enabled:
+                from ray_tpu_torch.util.metrics import Counter
+
+                Counter(
+                    "gcs_wal_replayed_total",
+                    "WAL records replayed on GCS restore",
+                ).inc(float(replayed))
         return after_seq
 
     def _apply_wal(self, op: str, d: dict) -> None:
@@ -365,13 +390,32 @@ class GcsServer:
             "placement_groups": detached_pgs,
         }
 
-    def _snapshot_state(self, wal_seq: int) -> dict:
-        """Full-table snapshot: the durable tables plus ``wal_seq``, the WAL
-        prefix this snapshot covers (replay skips records at or below
-        it)."""
+    def _snapshot_state(self, wal_seq: int,
+                        include_heavy: bool = True) -> dict:
+        """Full-table snapshot: the durable tables plus the soft state a
+        restarted head should not forget — the metrics time-series ring,
+        the task-event aggregator and the last metric report per source.
+        ``wal_seq`` marks the WAL prefix this snapshot covers (replay skips
+        records at or below it). With ``include_heavy=False`` the
+        lock-guarded heavy copy-outs are left for the caller to run off-loop
+        via :meth:`_snapshot_heavy` — both snapshot paths share THIS field
+        list, so a new soft-state field added here reaches the compaction
+        path too."""
         state = self._durable_state()
         state["wal_seq"] = int(wal_seq)
+        state["metrics"] = dict(self.metrics)
+        state["metric_reports"] = dict(self.metric_reports)
+        if include_heavy:
+            self._snapshot_heavy(state)
         return state
+
+    def _snapshot_heavy(self, state: dict) -> None:
+        """The task-event + timeseries copy-outs: guarded by their own
+        locks (safe off the event loop), and the aggregator copy grows
+        with retained history — the compaction path runs these in the
+        executor so they never stall heartbeat/scheduling rpcs."""
+        state["timeseries"] = self.timeseries.dump()
+        state["task_events"] = self.task_events.dump()
 
     def _write_snapshot(self) -> None:
         """Synchronous full snapshot (tests / offline tooling); the running
@@ -440,10 +484,22 @@ class GcsServer:
             self._snap_gen += 1
             gen = self._snap_gen
             seq = self.wal.rotate() if self.wal is not None else 0
-            state = self._snapshot_state(seq)
-            await asyncio.get_event_loop().run_in_executor(
-                None, self._install_snapshot, gen, state, seq
-            )
+            state = self._snapshot_state(seq, include_heavy=False)
+
+            def write():
+                # slight skew vs the table capture is fine: both are
+                # soft state, replaced wholesale on the next compaction
+                self._snapshot_heavy(state)
+                self._install_snapshot(gen, state, seq)
+
+            await asyncio.get_event_loop().run_in_executor(None, write)
+            if _config.metrics_enabled:
+                from ray_tpu_torch.util.metrics import Counter
+
+                Counter(
+                    "gcs_wal_compactions_total",
+                    "snapshot+truncate compactions of the GCS WAL",
+                ).inc(1.0)
 
     def _restore_actor(self, aid: bytes, a: dict) -> None:
         """(Re)build a restored detached actor PENDING; idempotent — WAL
@@ -487,9 +543,15 @@ class GcsServer:
         for aid, a in state.get("actors", {}).items():
             self._restore_actor(aid, a)
         self.named_actors.update(state.get("named_actors", {}))
+        self.metrics.update(state.get("metrics", {}))
+        self.metric_reports.update(state.get("metric_reports", {}))
+        self.timeseries.restore(state.get("timeseries", ()))
+        self.task_events.restore(state.get("task_events"))
         logger.info(
-            "GCS restored: %d kv, %d fns, %d detached actors",
+            "GCS restored: %d kv, %d fns, %d detached actors, "
+            "%d timeseries samples",
             len(self.kv), len(self.functions), len(self.actors),
+            len(self.timeseries),
         )
         return int(state.get("wal_seq", 0))
 
@@ -1025,10 +1087,136 @@ class GcsServer:
             return None
         return self.actors[actor_id].public()
 
+    # ------------------------------------------------------- observability
+    def handle_report_task_events(self, conn, events: List[dict],
+                                  dropped: int = 0, source: str = None):
+        """Workers/drivers/raylets flush buffered task state transitions
+        here (task_event_buffer.h:193 → GcsTaskManager). ``dropped`` is the
+        source's CUMULATIVE drop counter (bounded-buffer overflow + flush
+        failures), surfaced through metrics and get_task."""
+        self.task_events.ingest(events, dropped=dropped, source=source)
+        for e in events:
+            state = e.get("state", "UNKNOWN")
+            if state == "PROFILE":
+                continue
+            key = f"tasks_{state.lower()}"
+            self.metrics[key] = self.metrics.get(key, 0) + 1
+        return True
+
+    def handle_list_tasks(self, conn, limit=1000):
+        """One row per task: latest state, ids hex-normalized."""
+        return self.task_events.list_tasks(limit)
+
+    def handle_get_task(self, conn, task_id: str):
+        """Full event timeline of one task (state-API get_task)."""
+        return self.task_events.get_task(task_id)
+
+    def handle_summarize_tasks(self, conn):
+        return self.task_events.summarize()
+
+    def handle_timeline_events(self, conn, limit=50_000):
+        """Flat event list backing ray_tpu_torch.timeline()'s Chrome-trace export."""
+        return self.task_events.timeline_events(limit)
+
+    def handle_list_placement_groups(self, conn):
+        return [
+            {
+                "pg_id": info.pg_id,
+                "state": info.state,
+                "bundles": info.bundles,
+                "strategy": info.strategy,
+                "placement": info.placement,
+            }
+            for info in self.placement_groups.values()
+        ]
+
+    def handle_get_metrics(self, conn):
+        m = dict(self.metrics)
+        m.update(self.task_events.stats())  # tracing drop/retention counters
+        # the GCS's own wire counters, namespaced so they don't collide with
+        # the caller's (util/state.summarize_metrics merges the driver's
+        # un-prefixed rpc_* counters on top of this reply)
+        for k, v in rpc.stats_snapshot().items():
+            m["gcs_" + k] = v
+        m["num_nodes"] = len(self.nodes)
+        m["num_alive_nodes"] = sum(1 for n in self.nodes.values() if n.alive)
+        m["num_actors"] = len(self.actors)
+        m["num_alive_actors"] = sum(
+            1 for a in self.actors.values() if a.state == ALIVE
+        )
+        m["num_placement_groups"] = len(self.placement_groups)
+        return m
+
+    def handle_report_metrics(self, conn, source: str, samples: list):
+        """A process flushed its metrics registry (util/metrics.py)."""
+        self.metric_reports[source] = (time.time(), samples)
+        return True
+
+    def _merged_metrics(self) -> list:
+        """Cluster-wide merge: every reported registry + the GCS's own
+        synthetic counters/gauges + the GCS process's own metrics registry
+        (the task-duration histograms the aggregator derives live there)."""
+        from ray_tpu_torch.util.metrics import get_registry, merge_snapshots
+
+        gcs_series = [
+            {
+                "name": "gcs_" + k, "kind": "counter", "description": "",
+                "boundaries": [], "points": {(): float(v)},
+            }
+            for k, v in self.metrics.items()
+        ]
+        gauges = {
+            "gcs_alive_nodes": sum(1 for n in self.nodes.values() if n.alive),
+            "gcs_alive_actors": sum(
+                1 for a in self.actors.values() if a.state == ALIVE
+            ),
+            "gcs_placement_groups": len(self.placement_groups),
+        }
+        gcs_series += [
+            {
+                "name": k, "kind": "gauge", "description": "",
+                "boundaries": [], "points": {(): float(v)},
+            }
+            for k, v in gauges.items()
+        ]
+        now = time.time()
+        return merge_snapshots({
+            **self.metric_reports,
+            "gcs": (now, gcs_series),
+            "gcs-process": (now, get_registry().collect()),
+        })
+
+    def handle_collect_metrics(self, conn):
+        """Cluster-wide merged user+core metrics, for the dashboard's
+        /metrics endpoint."""
+        return self._merged_metrics()
+
+    def handle_get_metrics_timeseries(self, conn, names=None, limit=None):
+        """Bounded history of merged snapshots (one every
+        metrics_report_interval_ms): [{"ts", "series"}...], newest last."""
+        return self.timeseries.query(names=names, limit=limit)
+
+    async def _metrics_sample_loop(self):
+        """Sample the cluster-wide merge into the bounded time-series ring
+        (the retention layer behind get_metrics_timeseries)."""
+        from ray_tpu_torch.core import rpc as rpc_mod
+
+        period = max(_config.metrics_report_interval_ms, 100) / 1000
+        while True:
+            await asyncio.sleep(period)
+            try:
+                rpc_mod.publish_wire_counters()
+                self.timeseries.sample(self._merged_metrics())
+            except Exception:  # noqa: BLE001 - sampling must never kill GCS
+                logger.exception("metrics sample loop error")
+
     async def handle_publish_logs(self, conn, batch: dict):
         """A raylet's log monitor pushed a batch of worker log lines; fan
         them out to every "logs" subscriber (drivers)."""
         await self.publish("logs", batch)
+
+    def handle_list_actors(self, conn):
+        return [a.public() for a in self.actors.values()]
 
     async def handle_kill_actor(self, conn, actor_id, no_restart=True):
         info = self.actors.get(actor_id)

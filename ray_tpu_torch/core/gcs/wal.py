@@ -31,8 +31,8 @@ replaying them again converges to the same state. Crash windows:
 * after replace, before prune → stale segment replays as no-ops (its seqs
   are <= the new snapshot's wal_seq and are skipped).
 
-The port's copy of ray_tpu/core/gcs/wal.py without its metrics counters and
-its chaos injection point.
+The port's copy of ray_tpu/core/gcs/wal.py without its chaos injection
+point.
 """
 
 from __future__ import annotations
@@ -135,6 +135,8 @@ class GcsWal:
         self._segment_start = 0  # first seq of the active segment
         self._segment_bytes = 0
         self._poisoned = False   # a failed append left irreparable garbage
+        self._m_records = None
+        self._m_bytes = None
 
     # ------------------------------------------------------------ lifecycle
     def open(self, start_seq: int) -> None:
@@ -183,6 +185,22 @@ class GcsWal:
             self._fd = None
 
     # -------------------------------------------------------------- append
+    def _observe(self, nbytes: int) -> None:
+        if not _config.metrics_enabled:
+            return
+        if self._m_records is None:
+            from ray_tpu_torch.util.metrics import Counter
+
+            self._m_records = Counter(
+                "gcs_wal_records_total",
+                "durable-table mutations appended to the GCS WAL",
+            )
+            self._m_bytes = Counter(
+                "gcs_wal_bytes_total", "bytes appended to the GCS WAL"
+            )
+        self._m_records.inc(1.0)
+        self._m_bytes.inc(float(nbytes))
+
     def append(self, op: str, data: Dict[str, Any]) -> int:
         """Durably log one mutation; returns its sequence number. MUST be
         called by the mutating handler before it returns (the reply to the
@@ -225,6 +243,7 @@ class GcsWal:
         if _config.gcs_wal_fsync:
             os.fsync(self._fd)
         self._segment_bytes += len(rec)
+        self._observe(len(rec))
         return self.seq
 
     # ---------------------------------------------------------- compaction

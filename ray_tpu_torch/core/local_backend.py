@@ -9,14 +9,15 @@ on the same card, when it is read back.
 
 Streaming generators (``num_returns="streaming"``) run on a producer
 thread that pushes each item into the store as it is yielded
-(ray_tpu_torch/streaming/). Not ported yet (ROADMAP Queue A): tracing
-(task events, trace ids, request deadlines, ``timeline``; nothing is
-recorded), the chaos plane (no injection points; ``_fail_actor``, its kill
-hook, stays as the simulated worker death that restarts an actor, and
-fails the actor's open streams), the metrics time series,
-``state_call`` (util.state), and the compiled graphs' entry point
-``__ray_tpu_call__`` and ``actor_node``. The reference's named sanitizer
-locks are plain ``threading.Lock``s.
+(ray_tpu_torch/streaming/). Tracing is the reference's: task events with
+trace ids and request deadlines (an expired one is shed before user code
+runs), drained into an in-process aggregator on every state query, which
+backs ``state_call`` (util.state) and ``timeline``; the metrics time series
+is sampled on a thread of its own. Not ported yet (ROADMAP Queue A): the
+chaos plane (no injection points; ``_fail_actor``, its kill hook, stays as
+the simulated worker death that restarts an actor, and fails the actor's
+open streams), and the compiled graphs' entry point ``__ray_tpu_call__``
+and ``actor_node``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch import tracing
+from ray_tpu_torch.analysis import sanitizers as _san
 from ray_tpu_torch.core.backend import Backend
 from ray_tpu_torch.core.ids import ActorID, ObjectID, TaskID, WorkerID
 from ray_tpu_torch.core.options import RemoteOptions
@@ -117,9 +120,84 @@ class LocalBackend(Backend):
         self._objects: Dict[ObjectID, concurrent.futures.Future] = {}
         self._actors: Dict[ActorID, _LocalActor] = {}
         self._named_actors: Dict[Tuple[str, str], ActorID] = {}
-        self._lock = threading.Lock()
+        self._lock = _san.make_lock("core.local_backend")
         self._cancelled: set = set()
         self._actor_listeners: List[Any] = []
+        # tracing: local mode has no GCS — the process buffer drains into an
+        # in-process aggregator on every state query (no flush thread).
+        # Drop accounting is baselined at backend construction: the buffer
+        # is process-global, and THIS backend's aggregator must not report
+        # overflow from before it existed (same rule as the cluster flush
+        # loop in tracing.events.flush_task_events_loop).
+        self._events = tracing.get_buffer()
+        self._events.set_identity("local", f"local-{self.worker_id.hex()[:8]}")
+        self._aggregator = tracing.TaskEventAggregator()
+        self._drop_baseline = self._events.dropped
+        # task_id hex → task name, so a death path (which only has refs)
+        # can still record a named FAILED event
+        self._task_names: Dict[str, str] = {}
+        # metrics time series (cluster parity: the GCS samples its merge on
+        # the same period) — a daemon thread so local mode answers
+        # get_metrics_timeseries with real history, making the retention
+        # layer tier-1-testable
+        from ray_tpu_torch.util.metrics import MetricsTimeSeries
+
+        self._timeseries = MetricsTimeSeries()
+        self._ts_stop = threading.Event()
+        threading.Thread(
+            target=self._timeseries_loop, daemon=True,
+            name="local-metrics-ts",
+        ).start()
+    def _shed_expired(self, name: str, deadline: Optional[float],
+                      refs=None, stream=None) -> bool:
+        """Pre-execution admission (cluster worker parity): a task whose
+        request deadline passed while it queued is failed typed without
+        running user code. Fails `refs` or `stream` with
+        DeadlineExceededError; returns True when shed."""
+        if deadline is None or time.time() < deadline:
+            return False
+        from ray_tpu_torch.util.metrics import deadline_expired_counter
+
+        c = deadline_expired_counter()
+        if c is not None:
+            c.inc(1.0, {"where": "worker"})
+        err = exc.DeadlineExceededError(
+            f"task {name} shed before execution: request deadline exceeded "
+            f"by {time.time() - deadline:.3f}s"
+        )
+        if stream is not None:
+            stream.fail(err)
+        elif refs is not None:
+            self._store_error(refs, err)
+        return True
+
+    def _timeseries_loop(self):
+        from ray_tpu_torch.core.config import _config
+
+        last = 0.0
+        # short wait slices so a test shrinking metrics_report_interval_ms
+        # takes effect immediately (the period is re-read every slice)
+        while not self._ts_stop.wait(0.1):
+            period = max(_config.metrics_report_interval_ms, 100) / 1000
+            now = time.monotonic()
+            if now - last < period:
+                continue
+            last = now
+            try:
+                self._timeseries.sample(self._merged_metrics())
+            except Exception:  # noqa: BLE001 - sampling must never break us
+                pass
+
+    def _merged_metrics(self):
+        # local mode: everything runs in-process, so the local registry IS
+        # the cluster-wide view
+        import time as _time
+
+        from ray_tpu_torch.util.metrics import get_registry, merge_snapshots
+
+        return merge_snapshots(
+            {"local": (_time.time(), get_registry().collect())}
+        )
 
     # ------------------------------------------------- actor lifecycle plane
     def _emit_actor_event(self, actor_id: ActorID, state: str, reason: str = ""):
@@ -179,6 +257,7 @@ class LocalBackend(Backend):
                 actor.restarts_left -= 1
         for st in streams:
             st.fail(err)
+            self._record(st.task_id, st.name, "FAILED", actor_id=actor_id)
         for r in pending:
             fut = self._future_for(r.id)
             if not fut.done():
@@ -186,6 +265,9 @@ class LocalBackend(Backend):
                     fut.set_result(err)
                 except concurrent.futures.InvalidStateError:
                     pass
+            if r.task_id is not None:
+                # the timeline must end FAILED, never a phantom RUNNING
+                self._record(r.task_id, "", "FAILED", actor_id=actor_id)
         actor._pool.shutdown(wait=False, cancel_futures=True)
         actor.death_reason = reason
         if restartable:
@@ -202,6 +284,45 @@ class LocalBackend(Backend):
                         del self._named_actors[key]
             self._emit_actor_event(actor_id, "DEAD", reason)
         return True
+
+    # --------------------------------------------------------------- tracing
+    def _record(self, task_id: TaskID, name: str, state: str,
+                actor_id: Optional[ActorID] = None,
+                trace_id: Optional[str] = None,
+                parent_id: Optional[str] = None,
+                args: Optional[dict] = None) -> None:
+        tid = task_id.hex()
+        # _record runs on every task/actor thread — the name map (and its
+        # eviction) must be serialized or concurrent evictions corrupt it
+        with self._lock:
+            if name:
+                self._task_names.setdefault(tid, name)
+                # bounded like the aggregator's retention: evict oldest
+                # names so a long-lived local driver doesn't leak one entry
+                # per task
+                from ray_tpu_torch.core.config import _config
+
+                cap = max(1000, _config.task_events_max_tasks)
+                while len(self._task_names) > cap:
+                    self._task_names.pop(next(iter(self._task_names)))
+            else:
+                name = self._task_names.get(tid, "")
+        self._events.record(
+            task_id=tid, name=name, state=state,
+            actor_id=actor_id.hex() if actor_id else None,
+            node_id="local", worker=f"local-{self.worker_id.hex()[:8]}",
+            trace_id=trace_id if trace_id is not None
+            else tracing.current_trace_id(),
+            parent_id=parent_id, args=args,
+        )
+
+    def _sync_events(self):
+        events, dropped = self._events.drain()
+        self._aggregator.ingest(
+            events, dropped=max(0, dropped - self._drop_baseline),
+            source="local",
+        )
+        return self._aggregator
 
     # ------------------------------------------------------------------ utils
     def _future_for(self, oid: ObjectID) -> concurrent.futures.Future:
@@ -288,11 +409,26 @@ class LocalBackend(Backend):
         except concurrent.futures.InvalidStateError:
             pass
 
-    def _drive_stream(self, state: StreamState, produce) -> None:
+    def _drive_stream(self, state: StreamState, produce,
+                      deadline: Optional[float] = None) -> None:
         """Producer loop: run the generator, publishing each item as its own
         object the moment it is yielded (push), blocking in wait_credit when
         a backpressure window is set. Mirrors the cluster worker's
         _stream_items with in-process stores."""
+        if self._shed_expired(state.name, deadline, stream=state):
+            self._record(state.task_id, state.name, "FAILED")
+            return
+        self._record(state.task_id, state.name, "RUNNING")
+        with tracing.task_context(state.task_id.hex(), None,
+                                  deadline=deadline):
+            self._drive_stream_impl(state, produce)
+        self._record(
+            state.task_id, state.name,
+            "FAILED" if state.error is not None else "FINISHED",
+            args={"stream_items": state.count},
+        )
+
+    def _drive_stream_impl(self, state: StreamState, produce) -> None:
         from ray_tpu_torch.streaming.generator import as_item_iterator
 
         try:
@@ -347,13 +483,16 @@ class LocalBackend(Backend):
 
     def _submit_streaming_task(self, func, args, kwargs, options):
         state = self._make_stream(options, getattr(func, "__name__", "task"))
+        self._record(state.task_id, state.name, "SUBMITTED",
+                     parent_id=tracing.current_task_id())
 
         def produce():
             rargs, rkwargs = self._resolve_args(args, kwargs)
             return func(*rargs, **rkwargs)
 
         threading.Thread(
-            target=self._drive_stream, args=(state, produce), daemon=True,
+            target=self._drive_stream, args=(state, produce),
+            kwargs={"deadline": tracing.current_deadline()}, daemon=True,
             name=f"stream-{state.task_id.hex()[:8]}",
         ).start()
         return ObjectRefGenerator(state)
@@ -361,6 +500,8 @@ class LocalBackend(Backend):
     def _submit_streaming_actor_task(self, actor_id, method_name, args,
                                      kwargs, options):
         state = self._make_stream(options, method_name)
+        self._record(state.task_id, method_name, "SUBMITTED",
+                     actor_id=actor_id, parent_id=tracing.current_task_id())
         actor = self._actors.get(actor_id)
         if actor is None or actor.dead:
             state.fail(exc.ActorDiedError(
@@ -368,6 +509,7 @@ class LocalBackend(Backend):
             ))
             return ObjectRefGenerator(state)
         actor.pending_streams.add(state)
+        deadline = tracing.current_deadline()
 
         def run():
             try:
@@ -376,6 +518,8 @@ class LocalBackend(Backend):
                 except BaseException as e:  # noqa: BLE001 - init failed
                     state.fail(exc.ActorDiedError(actor_id, f"init failed: {e!r}"))
                     return
+                if self._shed_expired(method_name, deadline, stream=state):
+                    return
 
                 def produce():
                     rargs, rkwargs = self._resolve_args(args, kwargs)
@@ -383,7 +527,7 @@ class LocalBackend(Backend):
                         *rargs, **rkwargs
                     )
 
-                self._drive_stream(state, produce)
+                self._drive_stream(state, produce, deadline=deadline)
             finally:
                 actor.pending_streams.discard(state)
 
@@ -403,6 +547,12 @@ class LocalBackend(Backend):
             ObjectRef(ObjectID.for_task_return(task_id, i), task_id=task_id)
             for i in range(max(1, options.num_returns))
         ]
+        name = getattr(func, "__name__", "task")
+        trace_id = tracing.current_trace_id()
+        parent_id = tracing.current_task_id()
+        deadline = tracing.current_deadline()
+        self._record(task_id, name, "SUBMITTED", trace_id=trace_id,
+                     parent_id=parent_id)
 
         def run():
             retries = (
@@ -411,22 +561,32 @@ class LocalBackend(Backend):
                 else 0 if not options.retry_exceptions else 3
             )
             attempt = 0
-            while True:
-                if task_id in self._cancelled:
-                    self._store_error(refs, exc.TaskCancelledError(task_id))
+            with tracing.task_context(task_id.hex(), trace_id,
+                                      deadline=deadline):
+                if self._shed_expired(name, deadline, refs):
+                    self._record(task_id, name, "FAILED", trace_id=trace_id)
                     return
-                try:
-                    rargs, rkwargs = self._resolve_args(args, kwargs)
-                    result = func(*rargs, **rkwargs)
-                    self._store_results(refs, result, options.num_returns)
-                    return
-                except Exception as e:  # noqa: BLE001 - user exception boundary
-                    attempt += 1
-                    if options.retry_exceptions and attempt <= retries:
-                        time.sleep(backoff.delay(attempt))
-                        continue
-                    self._store_error(refs, e)
-                    return
+                self._record(task_id, name, "RUNNING", trace_id=trace_id)
+                while True:
+                    if task_id in self._cancelled:
+                        self._store_error(refs, exc.TaskCancelledError(task_id))
+                        self._record(task_id, name, "FAILED", trace_id=trace_id)
+                        return
+                    try:
+                        rargs, rkwargs = self._resolve_args(args, kwargs)
+                        result = func(*rargs, **rkwargs)
+                        self._store_results(refs, result, options.num_returns)
+                        self._record(task_id, name, "FINISHED",
+                                     trace_id=trace_id)
+                        return
+                    except Exception as e:  # noqa: BLE001 - user exception boundary
+                        attempt += 1
+                        if options.retry_exceptions and attempt <= retries:
+                            time.sleep(backoff.delay(attempt))
+                            continue
+                        self._store_error(refs, e)
+                        self._record(task_id, name, "FAILED", trace_id=trace_id)
+                        return
 
         threading.Thread(target=run, daemon=True, name=f"task-{task_id.hex()[:8]}").start()
         return refs
@@ -475,21 +635,40 @@ class LocalBackend(Backend):
             return refs
 
         actor.pending_refs.update(refs)
+        trace_id = tracing.current_trace_id()
+        parent_id = tracing.current_task_id()
+        deadline = tracing.current_deadline()
+        self._record(task_id, method_name, "SUBMITTED", actor_id=actor_id,
+                     trace_id=trace_id, parent_id=parent_id)
 
         def run():
             try:
                 actor.ensure_initialized()
-                rargs, rkwargs = self._resolve_args(args, kwargs)
-                result = getattr(actor.instance, method_name)(*rargs, **rkwargs)
-                import inspect
+                with tracing.task_context(task_id.hex(), trace_id,
+                                          deadline=deadline):
+                    if self._shed_expired(method_name, deadline, refs):
+                        self._record(task_id, method_name, "FAILED",
+                                     actor_id=actor_id, trace_id=trace_id)
+                        return
+                    self._record(task_id, method_name, "RUNNING",
+                                 actor_id=actor_id, trace_id=trace_id)
+                    rargs, rkwargs = self._resolve_args(args, kwargs)
+                    result = getattr(actor.instance, method_name)(
+                        *rargs, **rkwargs
+                    )
+                    import inspect
 
-                if inspect.iscoroutine(result):
-                    import asyncio
+                    if inspect.iscoroutine(result):
+                        import asyncio
 
-                    result = asyncio.run(result)
+                        result = asyncio.run(result)
                 self._store_results(refs, result, options.num_returns)
+                self._record(task_id, method_name, "FINISHED",
+                             actor_id=actor_id, trace_id=trace_id)
             except Exception as e:  # noqa: BLE001
                 self._store_error(refs, e)
+                self._record(task_id, method_name, "FAILED",
+                             actor_id=actor_id, trace_id=trace_id)
             finally:
                 actor.pending_refs.difference_update(refs)
 
@@ -518,6 +697,9 @@ class LocalBackend(Backend):
                     fut = self._future_for(r.id)
                     if not fut.done():
                         fut.set_result(err)
+                        if r.task_id is not None:
+                            self._record(r.task_id, "", "FAILED",
+                                         actor_id=actor_id)
 
             actor.stop(resolve_pending=resolve)
             with self._lock:
@@ -646,7 +828,59 @@ class LocalBackend(Backend):
             }
         ]
 
+    def state_call(self, method, **kwargs):
+        """Local-mode backing for util.state (no GCS process)."""
+        if method == "get_nodes":
+            return self.nodes()
+        if method == "list_actors":
+            return [
+                {"actor_id": aid.binary(), "state": "ALIVE"}
+                for aid, a in self._actors.items()
+            ]
+        if method == "list_tasks":
+            return self._sync_events().list_tasks(kwargs.get("limit", 1000))
+        if method == "get_task":
+            return self._sync_events().get_task(kwargs["task_id"])
+        if method == "summarize_tasks":
+            return self._sync_events().summarize()
+        if method == "timeline_events":
+            return self._sync_events().timeline_events(
+                kwargs.get("limit", 50_000)
+            )
+        if method in ("list_placement_groups", "object_stats"):
+            return []
+        if method == "get_metrics":
+            m = {"num_nodes": 1, "num_alive_nodes": 1,
+                 "num_actors": len(self._actors)}
+            m.update(self._sync_events().stats())
+            return m
+        if method == "collect_metrics":
+            return self._merged_metrics()
+        if method == "get_metrics_timeseries":
+            # append a fresh sample to the RESULT (not the ring) so a
+            # just-recorded metric is queryable without waiting out the
+            # sampling period — polling queries must not evict the ring's
+            # periodic history (the cluster-mode retention contract)
+            import time as _time
+
+            names = kwargs.get("names")
+            limit = kwargs.get("limit")
+            out = self._timeseries.query(names=names, limit=limit)
+            series = self._merged_metrics()
+            if names is not None:
+                keep = set(names)
+                series = [s for s in series if s["name"] in keep]
+            out = out + [{"ts": _time.time(), "series": series}]
+            # the fresh sample counts toward the limit: both backends
+            # honor "at most `limit` samples" (limit=0 means none)
+            if limit is None:
+                return out
+            limit = int(limit)
+            return out[-limit:] if limit > 0 else []
+        raise ValueError(f"unknown state method {method!r}")
+
     def shutdown(self):
+        self._ts_stop.set()
         for a in list(self._actors.values()):
             a.stop()
         self._actors.clear()

@@ -27,10 +27,9 @@ owns every inbound object transfer. Responsibilities here:
 All socket work runs on executor threads; the manager itself lives on the
 raylet's event loop.
 
-The port's copy of ray_tpu/core/object_store/pull_manager.py. Its metrics
-(the bytes counter, the in-flight and queue gauges) are cut with the
-metrics plane (ROADMAP Queue A item 3); ``stats`` keeps every counter,
-read through the raylet's ``scheduler_stats``: ``pulls`` counts the rung
+The port's copy of ray_tpu/core/object_store/pull_manager.py, with its
+metrics (the bytes counter, the in-flight and queue gauges). ``stats``
+keeps every counter, read through the raylet's ``scheduler_stats``: ``pulls`` counts the rung
 each pull took (``chunked``, ``native``, ``rpc``) and ``bytes_in`` the
 bytes landed.
 """
@@ -92,6 +91,9 @@ class PullManager:
             # of the stats can tell the pulls' rate: bytes_in / transfer_s
             "transfer_s": 0.0,
         }
+        self._m_bytes = None
+        self._g_inflight = None
+        self._g_queue = None
         # pull-side blocking waits (receiver waits, seal retries) get
         # their OWN bounded pool: parking them on the loop's default
         # executor let a pull burst starve this raylet's outbound
@@ -101,8 +103,36 @@ class PullManager:
             max_workers=8, thread_name_prefix="rt-pull-wait"
         )
 
+    # ------------------------------------------------------------- metrics
+    def _observe(self) -> None:
+        if not _config.metrics_enabled:
+            return
+        from ray_tpu_torch.util import metrics as metrics_api
+
+        if self._g_inflight is None:
+            self._g_inflight = metrics_api.Gauge(
+                "pull_inflight_bytes",
+                "bytes of concurrently-executing object pulls",
+            )
+            self._g_queue = metrics_api.Gauge(
+                "pull_queue_depth",
+                "pulls parked behind the in-flight bytes bound",
+            )
+        self._g_inflight.set(self._inflight_bytes)
+        self._g_queue.set(len(self._waitq))
+
     def _count_bytes(self, n: int) -> None:
         self.stats["bytes_in"] += n
+        if not _config.metrics_enabled:
+            return
+        if self._m_bytes is None:
+            from ray_tpu_torch.util import metrics as metrics_api
+
+            self._m_bytes = metrics_api.Counter(
+                "object_transfer_bytes_total",
+                "object bytes pulled into this node's store",
+            )
+        self._m_bytes.inc(float(n))
 
     def close(self) -> None:
         self._wait_pool.shutdown(wait=False, cancel_futures=True)
@@ -214,12 +244,14 @@ class PullManager:
                  self._over_share(job, need), next(self._seq), gate, job),
             )
             self.stats["queued"] += 1
+            self._observe()
             try:
                 await asyncio.wait_for(gate, timeout=remaining)
             except asyncio.TimeoutError:
                 return {"ok": False, "reason": "pull admission timed out"}
         self._inflight_bytes += need
         self._job_inflight[job] = self._job_inflight.get(job, 0) + need
+        self._observe()
         started = time.monotonic()
         try:
             return await self._transfer(oid, source_addr, nbytes, transport,
@@ -233,6 +265,7 @@ class PullManager:
             else:
                 self._job_inflight.pop(job, None)
             self._wake_parked()
+            self._observe()
 
     def _blocked_ahead(self, cls: int, over: int = 0) -> bool:
         """Queue barrier: a new pull may not slip past a PARKED pull of an

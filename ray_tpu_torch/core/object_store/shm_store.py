@@ -38,6 +38,7 @@ import threading
 import time
 from typing import Dict, Optional, Tuple
 
+from ray_tpu_torch.analysis import sanitizers as _san
 from ray_tpu_torch.core.ids import ObjectID
 from ray_tpu_torch.core.object_store.lifecycle import (
     ObjectRecord,
@@ -180,7 +181,7 @@ class ObjectDirectory:
         self.spill_dir = spill_dir or os.path.join(
             default_spill_root(client.dir), node_id
         )
-        self._lock = threading.Lock()
+        self._lock = _san.make_lock("core.shm_store")
         self.evictions = 0
         self.spills = 0    # spill files written
         self.restores = 0  # spilled objects brought back into shm

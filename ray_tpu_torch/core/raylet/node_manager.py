@@ -17,11 +17,14 @@ PullManager and the native TransferServer (each started and stopped with the
 raylet), chunk pushes, the dead-node promotion and spill adoption, and the
 GCS location records on seal, spill, eviction and free. A demand no node of
 the cluster can fit fails typed after the lease timeout ("no node can fit
-demand", the reference's words); a GPU demand is never run on the CPU. Cut
-with their planes: task events and the worker WAL recovery and shipping
-(tracing), metrics (their counters stay readable through
-``scheduler_stats`` and ``object_store_stats``), chaos, the compiled graphs'
-endpoint cleanup, and ``drain_node`` (autoscaling).
+demand", the reference's words); a GPU demand is never run on the CPU. The
+observability planes are the reference's: the LEASED task event and the
+raylet's task-event flush, the recovery of a SIGKILLed worker's task-event
+WAL, the lease-grant histogram, the locality counters and the metrics flush
+(the same counters stay readable through ``scheduler_stats`` and
+``object_store_stats``). Cut with their planes: the shipping of WAL tails
+to the GCS and the orphaned-WAL sweep (whole-node-loss forensics), chaos,
+the compiled graphs' endpoint cleanup, and ``drain_node`` (autoscaling).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import uuid
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+from ray_tpu_torch import tracing
 from ray_tpu_torch.core import rpc
 from ray_tpu_torch.core.config import _config
 from ray_tpu_torch.core.ids import ObjectID
@@ -77,6 +81,11 @@ class LeaseRequest:
     bundle_index: int = -1
     owner_conn: object = None
     req_id: Optional[str] = None   # owner-side id for cancellation
+    # tracing: identity of the task that triggered the request, so the
+    # grant records a LEASED event (cached-lease reuse skips the raylet)
+    task_id: Optional[str] = None
+    task_name: str = ""
+    trace_id: Optional[str] = None
     # locality: owner-recorded (oid_hex, nbytes, node_id) locations of the
     # task's by-reference args — dispatch prefers a feasible node already
     # holding the largest args, and queued leases prefetch remote args
@@ -156,7 +165,9 @@ class Raylet:
         self._push_pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=4, thread_name_prefix="rt-push"
         )
-        # dispatch decision counters (scheduler_stats["dispatch"]):
+        self._m_locality = None            # (hits counter, misses counter)
+        # dispatch decision counters (scheduler_stats["dispatch"], also
+        # exported as raylet_dispatch_* gauges):
         # spillbacks, locality hits/misses and spillbacks, prefetch kicks
         self._disp: Dict[str, int] = {
             "grants": 0, "skipped_no_worker": 0,
@@ -188,6 +199,22 @@ class Raylet:
         # lease_id / actor_id → [(card, share)] it holds
         self._lease_cards: Dict[str, List[Tuple[str, float]]] = {}
         self._actor_cards: Dict[bytes, List[Tuple[str, float]]] = {}
+        self._m_lease_grant = None  # queued->granted latency histogram
+
+    def _observe_lease_grant(self, lease: LeaseRequest) -> None:
+        if not _config.metrics_enabled:
+            return
+        if self._m_lease_grant is None:
+            from ray_tpu_torch.util import metrics as metrics_api
+
+            self._m_lease_grant = metrics_api.Histogram(
+                "raylet_lease_grant_ms",
+                "lease request queued -> worker granted",
+                boundaries=metrics_api.LATENCY_MS_BOUNDS,
+            )
+        self._m_lease_grant.observe(
+            (time.monotonic() - lease.queued_at) * 1000
+        )
 
     def _hold(self, task: "asyncio.Task") -> "asyncio.Task":
         """Keep a one-shot task alive until done (RT003 pattern)."""
@@ -199,6 +226,7 @@ class Raylet:
     async def start(self):
         self._loop = asyncio.get_running_loop()
         await self.server.start()
+        tracing.get_buffer().set_identity(self.node_id, self.server.address)
         self.pool = WorkerPool(
             self.server.address, self.gcs_address, self.session, self.node_id,
             env=dict(self.worker_env),
@@ -226,14 +254,17 @@ class Raylet:
         await self._register_node()
         self._bg.append(asyncio.create_task(self._report_loop()))
         self._bg.append(asyncio.create_task(self._poll_loop()))
-        # tail this node's worker logs to the driver (log_monitor.py ↔
-        # reference log_monitor.py)
+        # observability plane: tail this node's worker logs to the driver
+        # (log_monitor.py ↔ reference log_monitor.py) and flush core metrics
+        # and task events
         from ray_tpu_torch.core.raylet.log_monitor import LogMonitor
 
         self.log_monitor = LogMonitor(session_log_dir(self.session), self.node_id)
         self._bg.append(
             asyncio.create_task(self.log_monitor.run(self._publish_logs))
         )
+        self._bg.append(asyncio.create_task(self._metrics_flush_loop()))
+        self._bg.append(asyncio.create_task(self._task_events_flush_loop()))
         self._bg.append(asyncio.create_task(self._spill_loop()))
         self._bg.append(asyncio.create_task(self._spool_sweep_loop()))
         if _config.enable_worker_prestart:
@@ -374,6 +405,106 @@ class Raylet:
                 logger.exception("proactive spill sweep failed")
             await asyncio.sleep(period)
 
+    async def _metrics_flush_loop(self):
+        """Core raylet metrics (stats/metric_defs.cc analog): sampled gauges
+        over scheduler/worker-pool/object-store state, flushed to the GCS
+        with the rest of this process's registry."""
+        from ray_tpu_torch.util import metrics as metrics_api
+
+        g_pending = metrics_api.Gauge(
+            "raylet_pending_leases", "lease requests queued on this raylet"
+        )
+        g_active = metrics_api.Gauge(
+            "raylet_active_leases", "leases currently holding resources"
+        )
+        g_workers = metrics_api.Gauge(
+            "raylet_workers", "worker processes by state", tag_keys=("state",)
+        )
+        g_bytes = metrics_api.Gauge(
+            "object_store_used_bytes", "bytes sealed in the local shm store"
+        )
+        g_objs = metrics_api.Gauge(
+            "object_store_num_objects", "objects in the local shm store"
+        )
+        g_spill = metrics_api.Gauge(
+            "object_store_num_spilled", "objects spilled to disk"
+        )
+        g_pinned = metrics_api.Gauge(
+            "object_pinned_bytes",
+            "bytes of objects under a live owner pin lease",
+        )
+        g_spilled_b = metrics_api.Gauge(
+            "object_spilled_bytes", "bytes of objects backed by spill files"
+        )
+        g_state = metrics_api.Gauge(
+            "object_lifecycle_state",
+            "local objects by lifecycle state", tag_keys=("state",),
+        )
+        c_spilled = metrics_api.Counter(
+            "object_spilled_total", "spill files written by this raylet"
+        )
+        c_restored = metrics_api.Counter(
+            "object_restored_total",
+            "spilled objects restored into shm by this raylet",
+        )
+        last_spills = last_restores = 0
+        g_ticks = metrics_api.Gauge(
+            "raylet_dispatch_ticks", "poll-loop iterations completed"
+        )
+        period = max(_config.metrics_report_interval_ms, 100) / 1000
+        while True:
+            try:
+                rpc.publish_wire_counters()
+                # raylet_pending_leases IS the sched-queue-depth series
+                # (SLO dashboards/CLI read it by that name)
+                g_pending.set(len(self.pending_leases))
+                g_active.set(len(self.active_leases))
+                by_state: Dict[str, int] = {}
+                for w in self.pool.workers.values():
+                    by_state[w.state] = by_state.get(w.state, 0) + 1
+                for state, n in by_state.items():
+                    g_workers.set(n, tags={"state": state})
+                st = self.directory.stats()
+                g_bytes.set(st.get("used_bytes", 0))
+                g_objs.set(st.get("num_objects", 0))
+                g_spill.set(st.get("num_spilled", 0))
+                g_pinned.set(st.get("pinned_bytes", 0))
+                g_spilled_b.set(st.get("spilled_bytes", 0))
+                for state, n in (st.get("states") or {}).items():
+                    g_state.set(n, tags={"state": state})
+                c_spilled.inc(float(st.get("num_spills", 0) - last_spills))
+                last_spills = st.get("num_spills", 0)
+                c_restored.inc(
+                    float(st.get("num_restores", 0) - last_restores))
+                last_restores = st.get("num_restores", 0)
+                g_ticks.set(getattr(self, "_poll_ticks", -1))
+                for k, v in getattr(self, "_disp", {}).items():
+                    metrics_api.Gauge(
+                        f"raylet_dispatch_{k}",
+                        "scheduler dispatch decisions since start",
+                    ).set(v)
+                samples = metrics_api.get_registry().collect()
+                if samples and self.gcs is not None and not self.gcs.closed:
+                    await self.gcs.notify(
+                        "report_metrics",
+                        source=f"raylet-{self.node_id}",
+                        samples=samples,
+                    )
+            except (rpc.RpcError, rpc.ConnectionLost):
+                pass
+            except Exception:  # noqa: BLE001 - metrics must never kill raylet
+                logger.exception("metrics flush error")
+            await asyncio.sleep(period)
+
+    async def _task_events_flush_loop(self):
+        """Flush this raylet's task events (lease grants) to the GCS
+        aggregator — same plane the workers/drivers flush on. notify (not
+        call): the raylet must never block on a GCS reply."""
+        await tracing.events.flush_task_events_loop(
+            tracing.get_buffer(), lambda: self.gcs,
+            source=f"raylet-{self.node_id}", use_notify=True,
+        )
+
     async def _spool_sweep_loop(self):
         """Session hygiene: reclaim stream spool files (``p<pid>_...``) in
         the session's ``cgraph_net/`` whose reader process died without
@@ -445,7 +576,8 @@ class Raylet:
 
     async def handle_request_lease(
         self, conn, resources, allow_spillback=True, pg_id=None,
-        bundle_index=-1, req_id=None, arg_hints=None,
+        bundle_index=-1, req_id=None, task_id=None, task_name="",
+        trace_id=None, arg_hints=None,
     ):
         """Owner asks for a worker lease. Replies:
         {granted: worker_addr, lease_id} | {spillback: raylet_addr} |
@@ -469,6 +601,9 @@ class Raylet:
             bundle_index=bundle_index,
             owner_conn=conn,
             req_id=req_id,
+            task_id=task_id,
+            task_name=task_name or "",
+            trace_id=trace_id,
             arg_hints=arg_hints or None,
         )
         self.pending_leases.append(lease)
@@ -804,6 +939,7 @@ class Raylet:
             worker.lease_id = lease.lease_id
             self.active_leases[lease.lease_id] = (lease.demand, worker, token)
             self._disp["grants"] += 1
+            self._observe_lease_grant(lease)
             self._record_locality(lease)
             if lease.pg_id is not None:
                 self._lease_pg[lease.lease_id] = (lease.pg_id, lease.bundle_index)
@@ -813,6 +949,13 @@ class Raylet:
             if cards:
                 reply["gpu_ids"] = worker.gpu_ids
             lease.future.set_result(reply)
+            if lease.task_id is not None:
+                tracing.get_buffer().record(
+                    task_id=lease.task_id, name=lease.task_name,
+                    state="LEASED", node_id=self.node_id,
+                    worker=worker.address, trace_id=lease.trace_id,
+                    component="raylet",
+                )
             logger.debug("lease %s granted -> %s", lease.lease_id[:8], worker.address)
 
     def _worker_cap(self) -> int:
@@ -912,6 +1055,24 @@ class Raylet:
         hit = local >= best_remote and local > 0
         key = "locality_hits" if hit else "locality_misses"
         self._disp[key] = self._disp.get(key, 0) + 1
+        if not _config.metrics_enabled:
+            return
+        if self._m_locality is None:
+            from ray_tpu_torch.util import metrics as metrics_api
+
+            self._m_locality = (
+                metrics_api.Counter(
+                    "lease_locality_hits_total",
+                    "hinted leases granted on the node holding the most "
+                    "arg bytes",
+                ),
+                metrics_api.Counter(
+                    "lease_locality_misses_total",
+                    "hinted leases granted off the best arg-holding node",
+                ),
+            )
+        self._m_locality[0 if hit else 1].inc(1.0)
+
 
     def _prefetch_args(self, lease: LeaseRequest) -> None:
         """Arg prefetch: start pulling a queued lease's REMOTE hinted args
@@ -987,6 +1148,7 @@ class Raylet:
         return reply
 
     async def _on_worker_death(self, handle: WorkerHandle):
+        await self._recover_worker_wal(handle)
         self._reclaim_worker_spools(handle)
         if handle.lease_id:
             self.handle_return_lease(None, handle.lease_id)
@@ -1004,6 +1166,60 @@ class Raylet:
                 )
             except (rpc.RpcError, rpc.ConnectionLost):
                 pass
+
+    async def _recover_worker_wal(self, handle: WorkerHandle):
+        """Crash forensics: a dead worker's unflushed TaskEventBuffer died
+        with it — but its WAL (appended per event, truncated on successful
+        flush) survives in the session dir. Forward the orphaned tail to the
+        aggregator so a SIGKILLed worker's final spans (RUNNING states,
+        profile spans from the last second) still close its timeline, then
+        delete the file (recovery is one-shot)."""
+        if not _config.task_events_wal_enabled:
+            return
+        from ray_tpu_torch.core.object_store.shm_store import session_dir
+
+        path = os.path.join(
+            session_dir(self.session), "task_wal",
+            f"wal-{self.node_id}-{handle.startup_token}.jsonl",
+        )
+        try:
+            events = tracing.read_wal(path)
+        except Exception:  # noqa: BLE001 - forensics must not break reaping
+            logger.exception("WAL parse failed for %s", path)
+            return
+        if not events:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+            return
+        # deliver BEFORE unlinking: if the GCS is unreachable right now,
+        # the file stays and the orphan sweep retries once it is back
+        # (replay is idempotent — the aggregator dedups wal- sources)
+        if not await self._report_wal_events(
+            events, f"wal-{self.node_id}-{handle.startup_token}"
+        ):
+            return
+        logger.info(
+            "recovered %d task events from dead worker token=%s WAL",
+            len(events), handle.startup_token,
+        )
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+
+    async def _report_wal_events(self, events, source: str) -> bool:
+        if self.gcs is None or self.gcs.closed:
+            return False
+        try:
+            await self.gcs.notify(
+                "report_task_events", events=events, dropped=0,
+                source=source,
+            )
+            return True
+        except (rpc.RpcError, rpc.ConnectionLost):
+            return False
 
     def _reclaim_worker_spools(self, handle: WorkerHandle) -> None:
         """A worker died: unlink any cross-node channel spool files it

@@ -1,8 +1,5 @@
 """ObjectRef — a future/handle to an immutable object in the cluster.
 
-The port's copy of ray_tpu/core/refs.py; its registry lock is a plain
-threading.Lock (the reference's lock-order sanitizer is not ported).
-
 Parity: the reference's ``ObjectRef`` (python/ray/includes/object_ref.pxi) is a thin
 wrapper over a binary id plus the owner's address; `ray.get` resolves it through the
 owner. Ours carries the ObjectID and the owner's (node, worker) addresses so any
@@ -12,9 +9,9 @@ process can resolve it without a central directory — the *owner* serves locati
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, Dict, Optional
 
+from ray_tpu_torch.analysis import sanitizers as _san
 from ray_tpu_torch.core.ids import ObjectID, TaskID
 
 # ---------------------------------------------------------------------------
@@ -25,7 +22,7 @@ from ray_tpu_torch.core.ids import ObjectID, TaskID
 # no pending tasks/borrowers remain; borrowers use it to send a release to
 # the owner (core_worker._on_local_refs_zero).
 # ---------------------------------------------------------------------------
-_reg_lock = threading.Lock()
+_reg_lock = _san.make_lock("core.refs")
 _local_counts: Dict[bytes, int] = {}
 _owner_addrs: Dict[bytes, Optional[str]] = {}  # last-seen owner per live oid
 _on_zero: Optional[Callable[[ObjectID, Optional[str], Optional[TaskID]], None]] = None

@@ -2,9 +2,10 @@
 
 The port's copy of ray_tpu/core/rpc.py: the same wire format (v2), batching,
 out-of-band buffers, protocol-version preamble and auth token (read from
-``RAY_TPU_TOKEN`` at import, but never exported: see set_auth_token). The chaos
-injection points, the lock/loop sanitizers and the tracing and metrics hooks
-are cut; the per-connection wire counters (``Connection.stats``) stay.
+``RAY_TPU_TOKEN`` at import, but never exported: see set_auth_token), the
+lock/loop sanitizers, the process-wide wire counters mirrored into the
+metrics registry, and ``rpc.flush`` profile spans. The chaos injection
+points are cut with the chaos plane.
 
 Role parity: src/ray/rpc/ (GrpcServer/ClientCall). A fresh design rather than
 gRPC: the control plane is Python end-to-end here, so a compact asyncio framing
@@ -44,10 +45,12 @@ import pickle
 import socket as _socket
 import struct
 import threading
+import time
 import traceback
 from collections import deque
 from typing import Any, Awaitable, Callable, Dict, List, Optional, Tuple
 
+from ray_tpu_torch.analysis import sanitizers as _san
 from ray_tpu_torch.core.config import _config
 
 logger = logging.getLogger(__name__)
@@ -266,10 +269,59 @@ def _tune_socket(writer: asyncio.StreamWriter) -> None:
             pass
 
 
+# process-wide aggregates across all connections (per-connection numbers
+# live on Connection.stats); surfaced through get_metrics
 _STAT_KEYS = (
     "rpc_frames_sent", "rpc_bytes_sent", "rpc_frames_coalesced",
     "rpc_oob_bytes", "rpc_flushes", "rpc_frames_recv",
 )
+_TOTALS: Dict[str, int] = {k: 0 for k in _STAT_KEYS}
+
+
+def stats_snapshot() -> Dict[str, int]:
+    """Process-wide RPC wire counters (sum over all connections)."""
+    return dict(_TOTALS)
+
+
+_PUBLISHED: Dict[str, int] = {}
+_STAT_HELP = {
+    "rpc_frames_sent": "frames written to the wire",
+    "rpc_bytes_sent": "bytes written to the wire",
+    "rpc_frames_coalesced": "frames that shared a gather-write",
+    "rpc_oob_bytes": "bytes sent via out-of-band segment tables",
+    "rpc_flushes": "outbox gather-writes",
+    "rpc_frames_recv": "frames read from the wire",
+}
+
+
+def publish_wire_counters() -> None:
+    """Mirror this process's rpc_* wire totals into the metrics registry as
+    real Counters, so the periodic registry flush carries them to the GCS
+    and they AGGREGATE cluster-wide (fixing the summarize_metrics caveat
+    that dispatch-plane telemetry was only visible from the calling driver).
+    Delta-based: safe to call from any flush loop, any number of times."""
+    from ray_tpu_torch.util import metrics as metrics_api
+
+    for k, v in stats_snapshot().items():
+        prev = _PUBLISHED.get(k, 0)
+        if v > prev:
+            metrics_api.Counter(k, description=_STAT_HELP.get(k, "")).inc(
+                v - prev
+            )
+            _PUBLISHED[k] = v
+
+
+_tracing_mod = None
+
+
+def _tracing():
+    # lazy: ray_tpu_torch.tracing imports during package init would cycle
+    global _tracing_mod
+    if _tracing_mod is None:
+        from ray_tpu_torch import tracing
+
+        _tracing_mod = tracing
+    return _tracing_mod
 
 
 class Connection:
@@ -433,6 +485,7 @@ class Connection:
         # the outbox and its byte counters are loop-only state: appends
         # interleave only at await points (the flusher's empty-check
         # depends on it) — a cross-thread append would corrupt framing
+        _san.assert_loop_affinity("rpc.Connection.outbox", self._loop)
         chunks, nbytes, oob = _encode_frame(msg)
         self._outbox.extend(chunks)
         self._outbox_bytes += nbytes
@@ -441,6 +494,9 @@ class Connection:
         st["rpc_frames_sent"] += 1
         st["rpc_bytes_sent"] += nbytes
         st["rpc_oob_bytes"] += oob
+        _TOTALS["rpc_frames_sent"] += 1
+        _TOTALS["rpc_bytes_sent"] += nbytes
+        _TOTALS["rpc_oob_bytes"] += oob
 
     def _append_frame(self, msg) -> None:
         # staged batched requests always drain BEFORE a directly-sent frame
@@ -465,6 +521,7 @@ class Connection:
                 self._append_staged_one(m)
             return
         self.stats["rpc_frames_coalesced"] += len(staged) - 1
+        _TOTALS["rpc_frames_coalesced"] += len(staged) - 1
 
     def _append_staged_one(self, msg) -> None:
         """Encode one staged message; an encode failure (unpicklable
@@ -573,13 +630,14 @@ class Connection:
             if not self._outbox:
                 return
             chunks = self._outbox
-            nframes = self._outbox_frames
+            nbytes, nframes = self._outbox_bytes, self._outbox_frames
             self._outbox, self._outbox_bytes, self._outbox_frames = [], 0, 0
             # busy-ness signal for the adaptive gather window (wire frames
             # per flush; BATCH frames count once — they are already one
             # gather-write, so batched submit paths never read as busy)
             self._flush_ewma = 0.75 * self._flush_ewma + 0.25 * nframes
             self._wake_flushed()
+            t0 = time.perf_counter()
             try:
                 writer = self.writer
                 # vectored fast path: one sendmsg gather-write per syscall
@@ -596,8 +654,24 @@ class Connection:
                 await self._handle_close()
                 return
             self.stats["rpc_flushes"] += 1
+            _TOTALS["rpc_flushes"] += 1
             if nframes > 1:
                 self.stats["rpc_frames_coalesced"] += nframes - 1
+                _TOTALS["rpc_frames_coalesced"] += nframes - 1
+            dur = time.perf_counter() - t0
+            if dur >= 0.001:
+                # batching stalls (slow peer, huge batch) show up in
+                # ray_tpu_torch.timeline() instead of hiding in the io loop
+                try:
+                    buf = _tracing().get_buffer()
+                    if buf.enabled():
+                        buf.record_profile(
+                            "rpc.flush", dur=dur, component="rpc",
+                            args={"frames": nframes, "nbytes": nbytes,
+                                  "conn": self.name},
+                        )
+                except Exception:  # noqa: BLE001 - stats must not break io
+                    pass
 
     # ------------------------------------------------------------- receive
     async def _read_loop(self):
@@ -608,6 +682,7 @@ class Connection:
             while True:
                 msg = await _read_frame(self.reader)
                 self.stats["rpc_frames_recv"] += 1
+                _TOTALS["rpc_frames_recv"] += 1
                 self._process(*msg)
                 # drop the decoded message BEFORE parking on the next read:
                 # payloads now carry live objects (TaskSpecs with ObjectRefs,
@@ -859,11 +934,14 @@ class EventLoopThread:
         # spawn_batched state: queued (fn, args) pairs + a dirty flag so a
         # burst of cross-thread submissions costs ONE self-pipe wake
         self._calls: list = []
-        self._calls_lock = threading.Lock()
+        self._calls_lock = _san.make_lock("rpc.io_calls")
         self._calls_scheduled = False
         self._held_tasks: set = set()
         self._thread = threading.Thread(target=self._run, name=name, daemon=True)
         self._thread.start()
+        # dev-mode: the io-loop watchdog records a violation (with the
+        # loop thread's live stack) if this loop stops running callbacks
+        _san.watch_event_loop_thread(self)
 
     def _run(self):
         asyncio.set_event_loop(self.loop)
@@ -914,6 +992,8 @@ class EventLoopThread:
     def _drain_calls(self) -> None:
         # loop-only: ensure_future below binds tasks to THIS loop; running
         # it anywhere else would strand them on a foreign loop
+        _san.assert_thread_affinity("rpc.EventLoopThread._drain_calls",
+                                    self._thread.ident)
         with self._calls_lock:
             batch, self._calls = self._calls, []
             self._calls_scheduled = False

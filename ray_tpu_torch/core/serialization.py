@@ -27,12 +27,12 @@ from __future__ import annotations
 import io
 import pickle
 import sys
-import threading
 import types
 from typing import Any, Dict, List
 
 import cloudpickle
 
+from ray_tpu_torch.analysis import sanitizers as _san
 from ray_tpu_torch.core.refs import ObjectRef
 
 
@@ -215,7 +215,7 @@ def _restore_tensor(buf, dtype_name, shape, stride, requires_grad, is_param):
 # cloudpickle.register_pickle_by_value mutates process-global state; concurrent
 # serialize() calls must not unregister a module while another dump is mid-
 # flight (advisor finding r2). Registrations are reference-counted under a lock.
-_BY_VALUE_LOCK = threading.Lock()
+_BY_VALUE_LOCK = _san.make_lock("core.serialization.by_value")
 _BY_VALUE_COUNTS: Dict[str, int] = {}
 
 

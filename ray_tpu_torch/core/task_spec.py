@@ -5,13 +5,14 @@ content-addressed into the GCS function registry (sha of the cloudpickle
 blob), so a hot function crosses the wire once per cluster, not once per call
 (reference: python/ray/_private/function_manager.py export path).
 
-The port's copy of ray_tpu/core/task_spec.py without the tracing fields
-(trace, parent task, job) and the request deadlines that ride them.
+The port's copy of ray_tpu/core/task_spec.py; it leaves out the packed
+``runtime_env`` (that plane is not ported).
 """
 
 from __future__ import annotations
 
 import hashlib
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -38,6 +39,10 @@ class TaskSpec:
     num_returns: int
     resources: Dict[str, float]
     owner_addr: str                   # rpc address of the owning worker
+    # job identity (hex-ish string): rides every task event so the GCS
+    # aggregator can enforce per-job retention; nested submissions inherit
+    # it through the executing worker's task context
+    job_id: Optional[str] = None
     max_retries: int = 0
     retry_exceptions: bool = False
     # actor fields
@@ -55,8 +60,26 @@ class TaskSpec:
     # in the reply; `backpressure` bounds the producer's unconsumed lead
     streaming: bool = False
     backpressure: Optional[int] = None
-    # owner-side retry count (mutated before each resubmission)
+    # tracing (ray_tpu_torch/tracing/): one trace id per logical request,
+    # propagated into every nested submission so a request stitches across
+    # processes; parent_task_id is the submitting task (hex), attempt counts
+    # owner-side retries (mutated before each resubmission)
+    trace_id: Optional[str] = None
+    parent_task_id: Optional[str] = None
     attempt: int = 0
+    # overload protection: absolute wall-clock deadline (epoch seconds) of
+    # the root request, inherited by nested submissions via the worker task
+    # context. Expired specs are shed typed (DeadlineExceededError) before
+    # dispatch at the owner AND before execution at the worker — abandoned
+    # requests never burn worker time.
+    deadline: Optional[float] = None
+    # clock-skew guard: the owner's wall and monotonic clocks AT SUBMISSION
+    # (set whenever deadline is). The receiving host uses the pair to
+    # re-anchor the deadline into its own clock domain (effective_deadline)
+    # so NTP skew beyond deadline_skew_tolerance_s clamps instead of
+    # falsely shedding live work.
+    deadline_minted_wall: Optional[float] = None
+    deadline_minted_mono: Optional[float] = None
 
     def return_refs(self) -> List[ObjectRef]:
         return [
@@ -72,6 +95,92 @@ class TaskSpec:
         deps = [a[1] for a in self.args if a[0] == ARG_REF]
         deps += [a[1] for a in self.kwargs.values() if a[0] == ARG_REF]
         return deps
+
+
+def effective_deadline(deadline: Optional[float],
+                       minted_wall: Optional[float],
+                       minted_mono: Optional[float],
+                       now_wall: Optional[float] = None,
+                       now_mono: Optional[float] = None,
+                       tolerance_s: Optional[float] = None,
+                       ) -> Optional[float]:
+    """Translate an owner-minted wall-clock deadline into the RECEIVING
+    process's clock domain (the PR-10 multi-host skew gap).
+
+    Two regimes, picked from the spec's minted ``(wall, mono)`` pair:
+
+    * **Same boot** (CLOCK_MONOTONIC is system-wide, so owner and receiver
+      on one host share it): the wall/mono offsets agree within the
+      tolerance, and the EXACT elapsed time since mint comes from the
+      monotonic delta — immune to NTP step adjustments mid-flight.
+    * **Cross-host**: monotonic clocks are boot-relative and incomparable,
+      so the offsets disagree wildly and only wall clocks are shared. The
+      mint-to-receipt wall delta should be ~transit time; when it falls
+      outside ``[-tolerance, tolerance]`` the difference is dominated by
+      NTP skew (or extreme queueing, indistinguishable without a shared
+      clock) and the remaining budget is re-anchored to the receiver's
+      clock — the request keeps the time its owner granted it, it is
+      never falsely shed on a clock disagreement. Within the tolerance the
+      minted deadline is used as-is, so sheds stay exact up to the
+      documented skew bound.
+
+      The deliberate cost: a cross-host request that sat queued past the
+      tolerance under genuine overload gets its budget re-granted here
+      instead of shed — worker-side shedding degrades for that slice.
+      Bounded by design: the re-grant happens at most ONCE per hop
+      (localize_deadline is one-shot, and nested specs mint a fresh pair
+      from the already-localized context), and the owner/router-side
+      sheds — which share the minting clock and need no guard — still
+      fire exactly. Shedding live work on what might be a skewed clock
+      was judged the worse failure.
+
+    Pure function of its inputs (``now_*`` injectable for tests); time
+    sources default to the caller's clocks, read in separate statements —
+    never mixed in one expression (raylint RT007).
+    """
+    if deadline is None:
+        return None
+    if minted_wall is None:
+        return deadline
+    from ray_tpu_torch.core.config import _config
+
+    tol = (_config.deadline_skew_tolerance_s
+           if tolerance_s is None else tolerance_s)
+    if now_wall is None:
+        now_wall = time.time()
+    if now_mono is None:
+        now_mono = time.monotonic()
+    budget = deadline - minted_wall
+    if minted_mono is not None:
+        my_offset = now_wall - now_mono
+        owner_offset = minted_wall - minted_mono
+        if abs(my_offset - owner_offset) <= tol:
+            # shared monotonic domain: exact elapsed since mint
+            elapsed = now_mono - minted_mono
+            return now_wall + (budget - elapsed)
+    transit = now_wall - minted_wall
+    if transit < -tol or transit > tol:
+        # clocks provably (or plausibly) disagree past the tolerance:
+        # clamp — restart the owner-granted budget on OUR clock rather
+        # than shed live work on a skewed comparison
+        return now_wall + budget
+    return deadline
+
+
+def localize_deadline(spec: "TaskSpec") -> Optional[float]:
+    """One-shot, at the spec's arrival in a receiving process: rewrite
+    ``spec.deadline`` into the local clock domain via effective_deadline
+    (subsequent reads — shed checks, nested task context — see the
+    localized value)."""
+    if getattr(spec, "_deadline_localized", False):
+        return spec.deadline
+    spec._deadline_localized = True
+    spec.deadline = effective_deadline(
+        spec.deadline,
+        getattr(spec, "deadline_minted_wall", None),
+        getattr(spec, "deadline_minted_mono", None),
+    )
+    return spec.deadline
 
 
 def encode_args(args, kwargs, put_fn, inline_limit: int = 100 * 1024):

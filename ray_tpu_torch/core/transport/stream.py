@@ -47,10 +47,10 @@ closed state surfaces — the same closed-on-empty rule the shm ring uses.
 
 The port's copy of ray_tpu/core/transport/stream.py, the same wire format
 (a reference writer and a port reader speak to each other). It reads the
-port's ``rpc.get_auth_token()``; its locks are plain ``threading`` locks
-(the reference's sanitizer wrappers are not ported). In the port its one
-user is the object plane's chunked pull (object_store/chunk_transfer.py);
-the compiled graphs' channels come with cgraph.
+port's ``rpc.get_auth_token()``; its locks are the reference's named
+sanitizer locks. In the port its one user is the object plane's chunked
+pull (object_store/chunk_transfer.py); the compiled graphs' channels come
+with cgraph.
 """
 
 from __future__ import annotations
@@ -68,7 +68,9 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
+from ray_tpu_torch.analysis import sanitizers as _san
 from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch.analysis import sanitizers as _san
 from ray_tpu_torch.core.config import _config
 
 logger = logging.getLogger(__name__)
@@ -238,7 +240,7 @@ class ReaderState:
         self.token = token
         self.max_msgs = max(1, int(max_msgs))
         self.spool_dir = spool_dir
-        self._cond = threading.Condition()
+        self._cond = _san.make_condition("transport.reader")
         self._q: deque = deque()
         self._conn: Optional[socket.socket] = None
         self._send_lock = threading.Lock()
@@ -444,7 +446,7 @@ class WriterState:
     def __init__(self, sock: socket.socket, channel_id: str, credits: int):
         self.channel_id = channel_id
         self._sock = sock
-        self._cond = threading.Condition()
+        self._cond = _san.make_condition("transport.writer")
         self._credits = credits
         self._seq = 0
         self._ended: Optional[Tuple[str, str]] = None
@@ -648,7 +650,7 @@ class StreamListener:
         self._sock.listen(128)
         self.port = self._sock.getsockname()[1]
         self._readers: Dict[str, ReaderState] = {}
-        self._lock = threading.Lock()
+        self._lock = _san.make_lock("transport.listener")
         self._closed = False
         self._thread = threading.Thread(
             target=self._accept_loop, name="rt-stream-listener", daemon=True
@@ -739,7 +741,7 @@ class StreamListener:
 
 
 _listener: Optional[StreamListener] = None
-_listener_lock = threading.Lock()
+_listener_lock = _san.make_lock("transport.listener_registry")
 
 
 def get_listener() -> StreamListener:

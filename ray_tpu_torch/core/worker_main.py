@@ -10,11 +10,17 @@ The port's copy of ray_tpu/core/worker_main.py, started by the raylet as
 ``python -m ray_tpu_torch.core.worker_main``. It imports torch (through the
 package) but touches no card until a task does, so an idle worker holds no
 CUDA context; its kernels load from the build directory the driver built.
-The watchdog is kept: a worker exits when its raylet dies. A streaming
-task or actor method (``num_returns="streaming"``) pushes each yielded item
-to its owner as it is produced, with credit-based backpressure. Cut with
-their planes: task events, the task context and the worker's task-event
-WAL (tracing), request deadlines, ``runtime_env``, chaos and the compiled
+The watchdog is kept: a worker exits when its raylet dies. Plain tasks run
+one at a time under a stealable run slot: an owner pipelines up to
+``worker_max_tasks_in_flight`` of them onto one lease, a queued one bounces
+back (``{"requeue": True}``) when an owner steals it for an idle worker or
+when it cannot start within ``worker_requeue_after_ms``, and a task blocked
+in ``get`` hands the slot on. A streaming task or actor method
+(``num_returns="streaming"``) pushes each yielded item to its owner as it
+is produced, with credit-based backpressure. Every task runs in its task
+context (trace, job, deadline), records its task events, and appends them
+to the worker's task-event WAL; an expired deadline is shed before user
+code runs. Cut with their planes: ``runtime_env``, chaos and the compiled
 graphs' generic call entry point.
 """
 
@@ -28,7 +34,7 @@ import os
 import threading
 import time
 import traceback
-from typing import Optional
+from typing import Dict, Optional
 
 import cloudpickle
 
@@ -41,6 +47,7 @@ import cloudpickle
 import torch  # noqa: F401
 
 from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch import tracing
 from ray_tpu_torch.core import rpc, serialization, task_spec as ts
 from ray_tpu_torch.core.config import _config
 from ray_tpu_torch.core.core_worker import CoreWorker
@@ -49,22 +56,89 @@ from ray_tpu_torch.core.ids import ObjectID
 logger = logging.getLogger(__name__)
 
 
+class _StealableRunSlot:
+    """The plain-task execution slot, with work stealing.
+
+    One task RUNS at a time (the slot); tasks pushed behind it WAIT here.
+    An owner that sees another of its leased workers go idle sends
+    ``steal_tasks`` — waiting (queued, never-started) tasks are marked
+    stolen and bounce back ``{"requeue": True}`` immediately, so a spec
+    committed to a busy worker migrates to the idle one instead of waiting
+    out ``worker_requeue_after_ms`` behind a long/out-of-band-blocking
+    task. A task that already holds the slot can never be stolen."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._held = False
+        # task_id hex -> stolen flag, insertion-ordered (steal takes the
+        # NEWEST waiters: they are the furthest from running)
+        self._waiters: Dict[str, bool] = {}
+        self.steals = 0  # lifetime stolen-task count (stats/tests)
+
+    def acquire_for(self, task_id: str, timeout: float) -> str:
+        """Wait for the slot as task ``task_id``; returns "acquired",
+        "stolen" (an owner reclaimed this spec) or "timeout"."""
+        deadline = time.monotonic() + max(0.0, timeout)
+        with self._cv:
+            self._waiters[task_id] = False
+            try:
+                while True:
+                    if self._waiters[task_id]:
+                        return "stolen"
+                    if not self._held:
+                        self._held = True
+                        return "acquired"
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return "timeout"
+                    self._cv.wait(remaining)
+            finally:
+                self._waiters.pop(task_id, None)
+
+    def acquire(self) -> None:
+        """Unconditional re-take (the yield-slot path resuming a blocked
+        task); never steals, never times out."""
+        with self._cv:
+            while self._held:
+                self._cv.wait()
+            self._held = True
+
+    def release(self) -> None:
+        with self._cv:
+            self._held = False
+            self._cv.notify_all()
+
+    def steal(self, n: int) -> int:
+        """Mark up to ``n`` waiting tasks stolen (newest first); they bounce
+        back to their owner for resubmission elsewhere."""
+        with self._cv:
+            pending = [t for t, stolen in self._waiters.items() if not stolen]
+            take = pending[-max(0, n):] if n > 0 else []
+            for tid in take:
+                self._waiters[tid] = True
+            if take:
+                self.steals += len(take)
+                self._cv.notify_all()
+            return len(take)
+
+
 class WorkerAgent(CoreWorker):
     def __init__(self, gcs_address, raylet_address, session, node_id):
         super().__init__(gcs_address, raylet_address, session, node_id, mode="worker")
         # workers are children of their raylet: a changed parent means the
         # raylet is dead
         self._raylet_pid = os.getppid()
-        # Plain-task execution: one RUNNING task at a time (the slot; a
-        # lease runs one task at a time, so a second only comes from an
-        # owner that gave up on the first), on a wide thread pool so a task
-        # blocked in get() hands the slot on instead of starving the next.
+        # Plain-task execution: one RUNNING task at a time (the slot), but a
+        # wide thread pool so a task blocked in get() can hand its slot to
+        # the next pipelined task instead of starving it (the in-process
+        # mirror of the raylet's blocked-worker resource release — without
+        # it, pipelined submission deadlocks on tasks-that-get-tasks).
         # Actor workers swap in a dedicated serial pool at init: actor-call
         # ordering relies on the executor serializing, never on this slot.
         self._exec_pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=64, thread_name_prefix="task-exec"
         )
-        self._exec_slot = threading.Lock()
+        self._exec_slot = _StealableRunSlot()
         self._slot_state = threading.local()
         # actor state
         self.actor_instance = None
@@ -118,18 +192,34 @@ class WorkerAgent(CoreWorker):
         loop = asyncio.get_running_loop()
         if spec.streaming:
             return await loop.run_in_executor(
-                self._exec_pool, self._run_slotted,
+                self._exec_pool, self._run_slotted, spec,
                 self._execute_streaming, spec, conn,
             )
         return await loop.run_in_executor(
-            self._exec_pool, self._run_slotted, self._execute, spec
+            self._exec_pool, self._run_slotted, spec, self._execute, spec
         )
 
-    def _run_slotted(self, fn, *args):
+    async def handle_steal_tasks(self, conn, n=1):
+        """An owner with an idle leased worker reclaims queued-but-not-
+        started specs from this (busy) one; each stolen spec's push_task
+        reply bounces ``{"requeue": True}`` and the owner resubmits it to
+        the idle worker."""
+        return {"stolen": self._exec_slot.steal(int(n))}
+
+    def _run_slotted(self, spec, fn, *args):
         """Run one pushed task under the single execution slot. The slot —
         not the pool width — is what keeps plain-task execution serial;
-        get_blocking hands it over for the duration of a blocking get."""
-        self._exec_slot.acquire()
+        get_blocking hands it over for the duration of a blocking get.
+        A queued task bounces back to the owner ({"requeue": True}) either
+        when an owner STEALS it for an idle worker (immediate) or after
+        worker_requeue_after_ms (fallback bound when no worker is idle) —
+        a long/blocking peer must not pin queued tasks."""
+        outcome = self._exec_slot.acquire_for(
+            spec.task_id.hex(),
+            max(0.0, _config.worker_requeue_after_ms) / 1000.0,
+        )
+        if outcome != "acquired":
+            return {"requeue": True, "why": outcome}
         self._slot_state.held = True
         try:
             return fn(*args)
@@ -140,9 +230,9 @@ class WorkerAgent(CoreWorker):
 
     @contextlib.contextmanager
     def _yield_exec_slot(self):
-        """While the current task blocks in get(), release
-        the execution slot so another task can run; re-acquire
-        before resuming. No-op off the slotted plain-task path."""
+        """While the current task blocks (get, stream wait), release the
+        execution slot so the next pipelined task runs; re-acquire before
+        resuming. No-op off the slotted plain-task path."""
         yielded = getattr(self._slot_state, "held", False)
         if yielded:
             self._slot_state.held = False
@@ -187,28 +277,70 @@ class WorkerAgent(CoreWorker):
         with self.blocked():
             return self.get(refs, timeout)
 
+    def _task_ctx(self, spec: ts.TaskSpec):
+        """Tracing context for the executing task: nested submissions made
+        by the user function inherit this task as parent, ride the
+        request's trace id, carry the job, and inherit the request deadline
+        (all propagated through the spec). User code reads the remaining
+        budget via ``ray_tpu_torch.remaining_time_s()``."""
+        return tracing.task_context(
+            spec.task_id.hex(), getattr(spec, "trace_id", None),
+            getattr(spec, "job_id", None),
+            deadline=getattr(spec, "deadline", None),
+        )
+
+    def _shed_if_expired(self, spec: ts.TaskSpec):
+        """Pre-execution admission (overload protection): a spec whose
+        request deadline already passed is failed typed WITHOUT running
+        user code — the client stopped waiting, so executing it would only
+        steal worker time from requests that can still make their SLO.
+        Returns the error reply to send, or None to proceed."""
+        # first touch in this process: re-anchor the owner-minted deadline
+        # into the local clock domain (NTP-skew guard — a skewed receiver
+        # clamps instead of falsely shedding; see ts.effective_deadline)
+        deadline = ts.localize_deadline(spec)
+        if deadline is None or time.time() < deadline:
+            return None
+        from ray_tpu_torch.util.metrics import deadline_expired_counter
+
+        c = deadline_expired_counter()
+        if c is not None:
+            c.inc(1.0, {"where": "worker"})
+        self._record_task_event(spec, "FAILED")
+        err = exc.DeadlineExceededError(
+            f"task {spec.name} shed before execution: request deadline "
+            f"exceeded by {time.time() - deadline:.3f}s"
+        )
+        return self._error_result(spec, err, system=True)
+
     def _execute(self, spec: ts.TaskSpec) -> dict:
+        shed = self._shed_if_expired(spec)
+        if shed is not None:
+            return shed
+        self._record_task_event(spec, "RUNNING")
         try:
-            # cache hit stays on this thread: io.run costs two cross-
-            # thread hops, which dominate a short task's wall time
-            fn = self._fn_cache.get(spec.fn_id)
-            if fn is None:
-                fn = self.io.run(self.load_function(spec.fn_id))
-            args, kwargs = ts.decode_args(
-                spec.args, spec.kwargs,
-                lambda refs: self.get_blocking(refs, None),
-            )
-            attempts = 0
-            while True:
-                try:
-                    result = fn(*args, **kwargs)
-                    break
-                except Exception as e:  # noqa: BLE001 - user exception
-                    attempts += 1
-                    if spec.retry_exceptions and attempts <= spec.max_retries:
-                        time.sleep(self._backoff(attempts))
-                        continue
-                    return self._attach_borrows(spec, self._error_result(spec, e))
+            with self._task_ctx(spec):
+                # cache hit stays on this thread: io.run costs two cross-
+                # thread hops, which dominate a short task's wall time
+                fn = self._fn_cache.get(spec.fn_id)
+                if fn is None:
+                    fn = self.io.run(self.load_function(spec.fn_id))
+                args, kwargs = ts.decode_args(
+                    spec.args, spec.kwargs,
+                    lambda refs: self.get_blocking(refs, None),
+                )
+                attempts = 0
+                while True:
+                    try:
+                        result = fn(*args, **kwargs)
+                        break
+                    except Exception as e:  # noqa: BLE001 - user exception
+                        attempts += 1
+                        if spec.retry_exceptions and attempts <= spec.max_retries:
+                            time.sleep(self._backoff(attempts))
+                            continue
+                        return self._attach_borrows(spec, self._error_result(spec, e))
+            self._record_task_event(spec, "EXECUTED")
             return self._attach_borrows(spec, self._success_result(spec, result))
         except exc.RayTpuError as e:
             return self._attach_borrows(spec, self._error_result(spec, e, system=True))
@@ -343,15 +475,22 @@ class WorkerAgent(CoreWorker):
     # generator_backpressure_num_objects.
 
     def _execute_streaming(self, spec: ts.TaskSpec, conn) -> dict:
+        shed = self._shed_if_expired(spec)
+        if shed is not None:
+            return shed
+        self._record_task_event(spec, "RUNNING")
         try:
-            fn = self._fn_cache.get(spec.fn_id)
-            if fn is None:
-                fn = self.io.run(self.load_function(spec.fn_id))
-            args, kwargs = ts.decode_args(
-                spec.args, spec.kwargs,
-                lambda refs: self.get_blocking(refs, None),
-            )
-            return self._stream_items(spec, conn, lambda: fn(*args, **kwargs))
+            with self._task_ctx(spec):
+                fn = self._fn_cache.get(spec.fn_id)
+                if fn is None:
+                    fn = self.io.run(self.load_function(spec.fn_id))
+                args, kwargs = ts.decode_args(
+                    spec.args, spec.kwargs,
+                    lambda refs: self.get_blocking(refs, None),
+                )
+                return self._stream_items(
+                    spec, conn, lambda: fn(*args, **kwargs)
+                )
         except exc.RayTpuError as e:
             return self._attach_borrows(spec, self._error_result(spec, e, system=True))
         except BaseException as e:  # noqa: BLE001
@@ -361,12 +500,19 @@ class WorkerAgent(CoreWorker):
         self._actor_ready.wait(timeout=_config.worker_startup_timeout_s)
         if self._actor_init_error is not None:
             return self._error_result(spec, self._actor_init_error)
+        shed = self._shed_if_expired(spec)
+        if shed is not None:
+            return shed
+        self._record_task_event(spec, "RUNNING")
         try:
-            args, kwargs = ts.decode_args(
-                spec.args, spec.kwargs, lambda refs: self.get(refs, None)
-            )
-            method = getattr(self.actor_instance, spec.actor_method)
-            return self._stream_items(spec, conn, lambda: method(*args, **kwargs))
+            with self._task_ctx(spec):
+                args, kwargs = ts.decode_args(
+                    spec.args, spec.kwargs, lambda refs: self.get(refs, None)
+                )
+                method = getattr(self.actor_instance, spec.actor_method)
+                return self._stream_items(
+                    spec, conn, lambda: method(*args, **kwargs)
+                )
         except BaseException as e:  # noqa: BLE001
             return self._attach_borrows(spec, self._error_result(spec, e))
 
@@ -510,6 +656,12 @@ class WorkerAgent(CoreWorker):
         return self._stream_reply(spec, produced, had_error, granted)
 
     def _stream_reply(self, spec, total, had_error, granted) -> dict:
+        # tracing: one worker-side end-of-production event per stream (NOT
+        # per item — pushes are the hot path) carrying the item count
+        self._record_task_event(
+            spec, "EXECUTED",
+            args={"stream_items": total, "stream_error": bool(had_error)},
+        )
         out = {"results": [("streamed", {"total": total, "error": had_error})]}
         if granted:
             out["granted"] = granted
@@ -611,16 +763,22 @@ class WorkerAgent(CoreWorker):
         self._actor_ready.wait(timeout=_config.worker_startup_timeout_s)
         if self._actor_init_error is not None:
             return self._error_result(spec, self._actor_init_error)
+        shed = self._shed_if_expired(spec)
+        if shed is not None:
+            return shed
+        self._record_task_event(spec, "RUNNING")
         try:
-            args, kwargs = ts.decode_args(
-                spec.args, spec.kwargs, lambda refs: self.get(refs, None)
-            )
-            method = getattr(self.actor_instance, spec.actor_method)
-            result = method(*args, **kwargs)
-            import inspect
+            with self._task_ctx(spec):
+                args, kwargs = ts.decode_args(
+                    spec.args, spec.kwargs, lambda refs: self.get(refs, None)
+                )
+                method = getattr(self.actor_instance, spec.actor_method)
+                result = method(*args, **kwargs)
+                import inspect
 
-            if inspect.iscoroutine(result):
-                result = asyncio.run(result)
+                if inspect.iscoroutine(result):
+                    result = asyncio.run(result)
+            self._record_task_event(spec, "EXECUTED")
             return self._attach_borrows(spec, self._success_result(spec, result))
         except BaseException as e:  # noqa: BLE001
             return self._attach_borrows(spec, self._error_result(spec, e))
@@ -639,6 +797,17 @@ def main():
 
     agent = WorkerAgent(gcs, raylet, session, node_id)
     agent.connect()
+
+    # crash forensics: append every task event to a per-worker WAL in the
+    # (tmpfs-backed) shm session dir BEFORE the periodic flush — if this
+    # process is SIGKILLed, the raylet recovers the orphaned file into the
+    # aggregator so the final second of spans still closes the timeline.
+    if _config.task_events_wal_enabled:
+        from ray_tpu_torch.core.object_store.shm_store import session_dir
+
+        tracing.get_buffer().enable_wal(os.path.join(
+            session_dir(session), "task_wal", f"wal-{node_id}-{token}.jsonl",
+        ))
 
     # make nested @remote calls work inside tasks. Before registering:
     # registration may start an actor's constructor, and a task may arrive

@@ -36,8 +36,8 @@ most ``W + 1`` items in flight. Without it, the producer pipelines up to
 The port's copy of ray_tpu/streaming/: an item that is a CUDA tensor
 travels by the port's CUDA-tensor serialization (its bytes through the
 host) and the owner's ``get`` gives back its host copy, a CPU tensor, as
-the reference's owner gets a ``jax.Array`` item back as numpy. The streaming
-counters of the metrics plane are cut with it (generator.py).
+the reference's owner gets a ``jax.Array`` item back as numpy. The owner
+counts the items and exports its backlog as metrics (generator.py).
 """
 
 from ray_tpu_torch.streaming.generator import EndOfStream, ObjectRefGenerator, StreamState

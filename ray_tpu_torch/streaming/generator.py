@@ -9,26 +9,24 @@ owner's object store under deterministic ids
 (``ObjectID.for_task_return(task_id, index)``), so the generator can mint
 each ``ObjectRef`` without a lookup.
 
-Thread model: plain ``threading.Condition``. Producers/report paths touch it
-only with non-blocking mutations (safe from the io loop); the only blocking
-waits are the consumer's ``next_index`` (a user thread) and the producer's
-``wait_credit`` (a producer/executor thread, never the io loop).
+Thread model: one named (sanitizer) condition per stream. Producers/report
+paths touch it only with non-blocking mutations (safe from the io loop); the
+only blocking waits are the consumer's ``next_index`` (a user thread) and
+the producer's ``wait_credit`` (a producer/executor thread, never the io
+loop).
 
-The port's copy of ray_tpu/streaming/generator.py. Cut with the metrics
-plane (ROADMAP Queue A): the owner's item counter
-(``streaming_items_total``) and the backlog gauge of unconsumed items
-(``streaming_owner_buffered_items``); the warning an unwindowed stream's
-owner logs once past ``MAX_INFLIGHT_ITEMS`` is kept. The reference's
-config field ``streaming_max_inflight_items`` is the module constant
-``MAX_INFLIGHT_ITEMS``, and its named sanitizer condition a plain
-``threading.Condition``.
+The port's copy of ray_tpu/streaming/generator.py, with the owner's item
+counter (``streaming_items_total``) and the backlog gauge of unconsumed
+items (``streaming_owner_buffered_items``). The reference's config field
+``streaming_max_inflight_items`` is the module constant
+``MAX_INFLIGHT_ITEMS``.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, Optional
 
+from ray_tpu_torch.analysis import sanitizers as _san
 from ray_tpu_torch.core.ids import ObjectID, TaskID
 from ray_tpu_torch.core.refs import ObjectRef
 
@@ -36,6 +34,53 @@ from ray_tpu_torch.core.refs import ObjectRef
 # no generator_backpressure_num_objects, and the owner's bound on pushed but
 # unconsumed items: past it the owner spills an inline item to the shm store.
 MAX_INFLIGHT_ITEMS = 64
+
+# owner-buffer guard plane (shared by all streams in this process): live
+# over-cap unwindowed streams by identity → buffered count; the gauge
+# exports the MAX and drops to 0 once every backlog drains or closes
+_backlog_lock = _san.make_lock("streaming.backlog")
+_backlogged: dict = {}
+_backlog_gauge = None
+_items_counter = None
+
+
+def _count_item() -> None:
+    """Owner-side item-throughput series: one count per pushed item landing
+    in this owner's store (both backends report through here). The
+    time-series rate of this counter is the stream's items/s."""
+    from ray_tpu_torch.core.config import _config
+
+    if not _config.metrics_enabled:
+        return
+    global _items_counter
+    if _items_counter is None:
+        from ray_tpu_torch.util.metrics import Counter
+
+        _items_counter = Counter(
+            "streaming_items_total",
+            "stream items reported to this owner",
+        )
+    _items_counter.inc(1.0)
+
+
+def _update_backlog_gauge(state: "StreamState", buffered: int,
+                          over_cap: bool) -> None:
+    global _backlog_gauge
+    with _backlog_lock:
+        if over_cap:
+            _backlogged[id(state)] = buffered
+        else:
+            _backlogged.pop(id(state), None)
+        top = max(_backlogged.values(), default=0)
+    if _backlog_gauge is None:
+        from ray_tpu_torch.util.metrics import Gauge
+
+        _backlog_gauge = Gauge(
+            "streaming_owner_buffered_items",
+            "unconsumed pushed items buffered owner-side by the most "
+            "backlogged unwindowed stream",
+        )
+    _backlog_gauge.set(top)
 
 
 class EndOfStream(Exception):
@@ -63,7 +108,8 @@ class StreamState:
         # streams (one-way notify pushes can briefly overrun the cap)
         self.explicit_window = explicit_window
         self._buffer_warned = False
-        self._cond = threading.Condition()
+        self._was_backlogged = False
+        self._cond = _san.make_condition("streaming.state")
         self.count = 0            # items reported ready (max index + 1)
         self.consumed = 0         # items handed to the consumer
         self.total: Optional[int] = None   # set once the producer finished
@@ -88,18 +134,28 @@ class StreamState:
                 self.count = index + 1
             buffered = self.count - self.consumed
             self._cond.notify_all()
+        _count_item()
         self._guard_owner_buffer(buffered)
 
     def _guard_owner_buffer(self, buffered: int) -> None:
-        """Owner-side guard for unconsumed pushed items: warn ONCE per
-        stream when an unwindowed stream overruns
-        ``MAX_INFLIGHT_ITEMS`` (one-way notify pushes can run
-        ahead of the sync-point credit check). The reference also exports
-        the backlog as a gauge, cut here with the metrics plane."""
-        if self.explicit_window or self._buffer_warned:
+        """Owner-side guard for unconsumed pushed items: export how far the
+        most backlogged stream's consumer is behind, and warn ONCE per
+        stream when an unwindowed stream overruns ``MAX_INFLIGHT_ITEMS``
+        (one-way notify pushes can run ahead of the sync-point credit
+        check).
+
+        Zero-cost for healthy streams: the gauge plane is touched only
+        while over the cap, plus once on the way back under so the export
+        recovers to the true maximum (not a stale last write)."""
+        if self.explicit_window:
             return
         cap = MAX_INFLIGHT_ITEMS
-        if buffered > cap:
+        over = buffered > cap
+        if not over and not self._was_backlogged:
+            return
+        self._was_backlogged = over
+        _update_backlog_gauge(self, buffered, over)
+        if over and not self._buffer_warned:
             self._buffer_warned = True
             import logging
 
@@ -218,8 +274,11 @@ class StreamState:
             if self.consumed < self.count:
                 i = self.consumed
                 self.consumed += 1
+                buffered = self.count - self.consumed
                 self._release_credit_locked()
                 self._cond.notify_all()  # credit for a blocked producer
+                if self._was_backlogged:  # draining: let the gauge recover
+                    self._guard_owner_buffer(buffered)
                 return i
             if self.error is not None:
                 raise self.error
@@ -240,6 +299,9 @@ class StreamState:
             self.closed = True
             self._release_credit_locked()
             self._cond.notify_all()
+        if self._was_backlogged:  # closed stream no longer counts as backlog
+            self._was_backlogged = False
+            _update_backlog_gauge(self, 0, False)
         cb = self._on_close
         if cb is not None:
             try:

@@ -238,7 +238,15 @@ def test_port_imports_no_jax_and_nothing_of_ray_tpu():
             "ray_tpu_torch/core/object_store/native/__init__.py",
             "ray_tpu_torch/cluster_utils.py",
             "ray_tpu_torch/client/__init__.py",
-            "ray_tpu_torch/client/server.py"} <= names
+            "ray_tpu_torch/client/server.py",
+            "ray_tpu_torch/analysis/__init__.py",
+            "ray_tpu_torch/analysis/sanitizers.py",
+            "ray_tpu_torch/tracing/__init__.py",
+            "ray_tpu_torch/tracing/events.py",
+            "ray_tpu_torch/tracing/aggregator.py",
+            "ray_tpu_torch/tracing/timeline.py",
+            "ray_tpu_torch/util/metrics.py",
+            "ray_tpu_torch/util/state.py"} <= names
     bad = [
         (str(f.relative_to(REPO)), name)
         for f in files for name in _imports(f)
